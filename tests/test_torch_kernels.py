@@ -1,0 +1,338 @@
+"""Kernel modules of the PyTorch port against the JAX package, on the CPU.
+
+Each port wrapper takes its plain PyTorch version for CPU tensors; the
+JAX side runs its Pallas kernel in interpret mode (or its plain path),
+as the JAX package's own tests do. Inputs come from a seeded numpy RNG
+and reach both packages as numpy arrays. The CUDA kernels themselves run
+only on the card and are held against these same plain versions by
+``chip_smoke.py``.
+"""
+import numpy as onp
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mxnet_tpu.ops import nn as jnn
+from mxnet_tpu.ops.pallas import fused_decode as jfused
+from mxnet_tpu.ops.pallas import layer_norm as jln
+from mxnet_tpu.ops.pallas import paged_attention as jpaged
+from mxnet_tpu_torch.ops import nn as tnn
+from mxnet_tpu_torch.ops.kernels import _build
+from mxnet_tpu_torch.ops.kernels import fused_decode as tfused
+from mxnet_tpu_torch.ops.kernels import layer_norm as tln
+from mxnet_tpu_torch.ops.kernels import paged_attention as tpaged
+
+_T_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "int8": torch.int8}
+
+
+def _t(a, dtype=None):
+    """numpy -> CPU torch tensor (bfloat16 arrives as float32 numpy)."""
+    t = torch.from_numpy(onp.array(a))
+    return t.to(_T_DTYPES[dtype]) if dtype else t
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _jnp_f32(a):
+    return onp.asarray(jnp.asarray(a, jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# K2: LayerNorm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,d", [(8, 32), (13, 96), (1, 200)])
+def test_layer_norm_matches_jax_kernel(n, d):
+    """Port fused_layer_norm (plain version on CPU) against the Pallas
+    _ln_kernel in interpret mode: y, mean and rstd, f32 at 2e-5."""
+    rng = onp.random.RandomState(n * 1000 + d)
+    x = (rng.randn(n, d) * 3 + 1).astype(onp.float32)
+    g = rng.randn(d).astype(onp.float32)
+    b = rng.randn(d).astype(onp.float32)
+    want, (_, _, _, jmean, jrstd) = jln._ln_fwd(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), 1e-5, True)
+    y, mean, rstd = tln.fused_layer_norm(_t(x), _t(g), _t(b), 1e-5)
+    assert y.dtype == torch.float32 and tuple(mean.shape) == (n,)
+    onp.testing.assert_allclose(y.numpy(), onp.asarray(want), rtol=2e-5,
+                                atol=2e-5)
+    onp.testing.assert_allclose(mean.numpy(), onp.asarray(jmean), rtol=2e-5,
+                                atol=2e-5)
+    onp.testing.assert_allclose(rstd.numpy(), onp.asarray(jrstd), rtol=2e-5,
+                                atol=2e-5)
+
+
+def test_layer_norm_op_matches_jax_op_and_no_kernels_path():
+    """ops.nn.layer_norm (kernel wrapper) and its no_kernels path both
+    match the JAX op on a 3-D input."""
+    rng = onp.random.RandomState(3)
+    x = rng.randn(2, 5, 48).astype(onp.float32)
+    g = rng.randn(48).astype(onp.float32)
+    b = rng.randn(48).astype(onp.float32)
+    want = onp.asarray(jnn.layer_norm(jnp.asarray(x), jnp.asarray(g),
+                                      jnp.asarray(b)))
+    got = tnn.layer_norm(_t(x), _t(g), _t(b)).numpy()
+    with tnn.no_kernels():
+        plain = tnn.layer_norm(_t(x), _t(g), _t(b)).numpy()
+    onp.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    onp.testing.assert_allclose(plain, want, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV layout
+# ---------------------------------------------------------------------------
+def _int8_rows_agree(got, want, d):
+    """Pool rows [D int8 values | 4 scale bytes]: identical scale bytes,
+    values within one quantization step. Returns the count of values that
+    differ (near-tie roundings after a different f32 summation order)."""
+    got, want = onp.asarray(got), onp.asarray(want)
+    assert got.dtype == onp.int8 and want.dtype == onp.int8
+    assert got.shape == want.shape
+    onp.testing.assert_array_equal(got[..., d:], want[..., d:])
+    diff = onp.abs(got[..., :d].astype(onp.int32)
+                   - want[..., :d].astype(onp.int32))
+    assert diff.max() <= 1, diff.max()
+    return int((diff > 0).sum())
+
+
+def test_kv_cache_quantize_bytes_match_jax():
+    """Same input -> byte-identical int8 rows (the scale's bitcast bytes
+    included; no f32 sums are involved, so no value may differ), and the
+    dequantized values match. The reference is compiled, as every caller
+    in the JAX package runs it (XLA turns ``amax / 127`` into a multiply
+    by the f32 reciprocal; the port follows the compiled form)."""
+    rng = onp.random.RandomState(4)
+    t = (rng.randn(3, 4, 5, 16) * 2).astype(onp.float32)
+    t[0, 0, 0] = 0.0                          # the 1e-6 scale floor
+    t[1, 1, 1, 3] = 127.0 * 0.5               # exact half -> round-to-even
+    want = onp.asarray(jax.jit(jnn.kv_cache_quantize)(jnp.asarray(t)))
+    got = tnn.kv_cache_quantize(_t(t)).numpy()
+    assert got.shape == (3, 4, 5, 20)
+    assert _int8_rows_agree(got, want, 16) == 0
+    deq_want = onp.asarray(jnn.kv_cache_dequantize(jnp.asarray(want),
+                                                   jnp.float32))
+    deq_got = tnn.kv_cache_dequantize(_t(want), torch.float32).numpy()
+    onp.testing.assert_array_equal(deq_got, deq_want)
+
+
+# ---------------------------------------------------------------------------
+# K4: paged attention
+# ---------------------------------------------------------------------------
+def _paged_inputs(seed, pool_dtype):
+    rng = onp.random.RandomState(seed)
+    r, h, d, bs, nb, mb = 3, 4, 16, 8, 10, 4
+    q = rng.randn(r, h, d).astype(onp.float32)
+    kp = rng.randn(nb, h, bs, d).astype(onp.float32)
+    vp = rng.randn(nb, h, bs, d).astype(onp.float32)
+    bt = rng.randint(0, nb, (r, mb)).astype(onp.int32)
+    lens = onp.array([5, 17, 32], onp.int32)
+    if pool_dtype == "int8":
+        kp = onp.asarray(jnn.kv_cache_quantize(jnp.asarray(kp)))
+        vp = onp.asarray(jnn.kv_cache_quantize(jnp.asarray(vp)))
+    return q, kp, vp, bt, lens
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2),
+                                       ("int8", 2e-5)])
+def test_paged_attention_matches_jax(dtype, tol):
+    """Port paged_attention_kernel (plain version on CPU) against the
+    Pallas _paged_kernel in interpret mode, and the port's plain path
+    against the JAX gather path (use_kernel=False), f32/bf16/int8 pools
+    as in tests/test_llm_serving.py."""
+    q, kp, vp, bt, lens = _paged_inputs(7, dtype)
+    qdt = "float32" if dtype == "int8" else dtype
+    jq = jnp.asarray(q, qdt)
+    jk, jv = jnp.asarray(kp, dtype), jnp.asarray(vp, dtype)
+    jbt, jlen = jnp.asarray(bt), jnp.asarray(lens)
+    want_kernel = jpaged.paged_attention_kernel(jq, jk, jv, jbt, jlen,
+                                                interpret=True)
+    want_plain = jnn.paged_attention(jq, jk, jv, jbt, jlen, use_kernel=False)
+    # the same (bf16-rounded) values on the port's side
+    tq = _t(_jnp_f32(jq), qdt)
+    if dtype == "int8":
+        tk, tv = _t(kp), _t(vp)
+    else:
+        tk, tv = _t(_jnp_f32(jk), dtype), _t(_jnp_f32(jv), dtype)
+    got_kernel = tpaged.paged_attention_kernel(tq, tk, tv, _t(bt), _t(lens))
+    got_plain = tnn.paged_attention(tq, tk, tv, _t(bt), _t(lens),
+                                    use_kernel=False)
+    out_dtype = torch.float32 if dtype == "int8" else _T_DTYPES[dtype]
+    assert got_kernel.dtype == out_dtype and got_plain.dtype == out_dtype
+    for got, want in ((got_kernel, want_kernel), (got_plain, want_plain)):
+        onp.testing.assert_allclose(_np(got), _jnp_f32(want), rtol=tol,
+                                    atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# K5a / K5b: fused projections
+# ---------------------------------------------------------------------------
+def _dyadic(rng, shape, denom):
+    """Small multiples of 1/denom: every product and partial sum of the
+    projections below is exact in f32, so any summation order gives the
+    same bits (the K/V amax and hence the scale bytes included)."""
+    return (rng.randint(-4, 5, shape) / denom).astype(onp.float32)
+
+
+def _proj_inputs(seed, kind, n=5, u=32):
+    rng = onp.random.RandomState(seed)
+    if kind == "dyadic":
+        return (_dyadic(rng, (n, u), 4), _dyadic(rng, (3 * u, u), 8),
+                _dyadic(rng, (3 * u,), 4))
+    return (rng.randn(n, u).astype(onp.float32),
+            (rng.randn(3 * u, u) * 0.3).astype(onp.float32),
+            rng.randn(3 * u).astype(onp.float32))
+
+
+@pytest.mark.parametrize("store", ["float32", "int8"])
+@pytest.mark.parametrize("kind", ["normal", "dyadic"])
+def test_qkv_project_matches_jax(store, kind):
+    """Port fused_qkv_project against the Pallas _qkv_kernel (interpret):
+    q and f32 K/V at 2e-5. int8 K/V: on inputs whose projection is exact
+    (dyadic) the rows are byte-identical, scale bytes included (0 of 320
+    values differ). On normal inputs torch and XLA sum the f32 products
+    in another order, so about half of the 40 scales differ in the last
+    bit (rtol 1e-6) and values by at most one quantization step: 0 of the
+    320 values differ at this seed, and the test allows 2."""
+    x, w, b = _proj_inputs(11, kind)
+    heads, d = 4, 8
+    jd = jnp.int8 if store == "int8" else jnp.float32
+    jq, jk, jv = jfused.fused_qkv_project(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), heads=heads,
+        store_dtype=jd, interpret=True)
+    q, k, v = tfused.fused_qkv_project(_t(x), _t(w), _t(b), heads=heads,
+                                       store_dtype=_T_DTYPES[store])
+    onp.testing.assert_allclose(q.numpy(), onp.asarray(jq), rtol=2e-5,
+                                atol=2e-5)
+    if store == "float32":
+        for got, want in ((k, jk), (v, jv)):
+            onp.testing.assert_allclose(got.numpy(), onp.asarray(want),
+                                        rtol=2e-5, atol=2e-5)
+        return
+    assert tuple(k.shape) == (5, heads, d + 4)
+    if kind == "dyadic":
+        # 2 * 5 * 4 * 8 = 320 values: none may differ
+        assert _int8_rows_agree(k.numpy(), jk, d) == 0
+        assert _int8_rows_agree(v.numpy(), jv, d) == 0
+        return
+    n_diff = 0
+    for got, want in ((k, jk), (v, jv)):
+        got, want = got.numpy(), onp.asarray(want)
+        sg = got[..., d:].copy().view(onp.float32)
+        sw = want[..., d:].copy().view(onp.float32)
+        onp.testing.assert_allclose(sg, sw, rtol=1e-6, atol=0)
+        steps = onp.abs(got[..., :d].astype(onp.int32)
+                        - want[..., :d].astype(onp.int32))
+        assert steps.max() <= 1, steps.max()
+        n_diff += int((steps > 0).sum())
+    assert n_diff <= 2, n_diff
+
+
+def test_rounding_probe_rows_are_the_reference_rows():
+    """chip_smoke.py holds the K5a kernel's int8 K/V to the rows of
+    ``qkv_rounding_probe``, whose values lie on or one ulp beside
+    half-way points. Those expected rows are the reference's, byte for
+    byte: the JAX quantizer (compiled) and the Pallas _qkv_kernel
+    (interpret) give them, and so does the port's plain K5a. Each wrong
+    rounding the probe names would differ on at least 5% of the values."""
+    import chip_smoke
+
+    u, heads, n = 96, 4, 5
+    d = u // heads
+    x, w, b, q, rows, wrong = chip_smoke.qkv_rounding_probe(u, heads, n)
+    vals = (x @ w.T + b)[:, u:].reshape(n, 2, heads, d)   # exact: one-hot x
+    onp.testing.assert_array_equal(
+        onp.asarray(jax.jit(jnn.kv_cache_quantize)(jnp.asarray(vals))), rows)
+    jq, jk, jv = jfused.fused_qkv_project(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), heads=heads,
+        store_dtype=jnp.int8, interpret=True)
+    onp.testing.assert_array_equal(onp.asarray(jq), q)
+    onp.testing.assert_array_equal(onp.asarray(jk), rows[:, 0])
+    onp.testing.assert_array_equal(onp.asarray(jv), rows[:, 1])
+    chip_smoke.rounding_probe_check(torch, torch.device("cpu"), u, heads, n)
+    assert min(wrong.values()) >= 0.05 * vals.size, wrong
+
+
+def test_out_project_matches_jax():
+    """Port fused_out_project against the Pallas _out_kernel (interpret),
+    with and without bias, at 2e-5."""
+    rng = onp.random.RandomState(12)
+    a = rng.randn(6, 32).astype(onp.float32)
+    w = (rng.randn(32, 32) * 0.3).astype(onp.float32)
+    b = rng.randn(32).astype(onp.float32)
+    for bias in (b, None):
+        want = jfused.fused_out_project(
+            jnp.asarray(a), jnp.asarray(w),
+            None if bias is None else jnp.asarray(bias), interpret=True)
+        got = tfused.fused_out_project(_t(a), _t(w),
+                                       None if bias is None else _t(bias))
+        onp.testing.assert_allclose(got.numpy(), onp.asarray(want),
+                                    rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("store", ["float32", "int8"])
+def test_fused_decode_step_matches_jax(store):
+    """The whole fused sublayer step (K5a -> pool write -> K4 -> K5b)
+    against the JAX fused_decode_step in interpret mode: output at 2e-5
+    (f32) / 2e-4 (int8 round trip); the written pools agree (byte for
+    byte for int8: the projection inputs are dyadic, see _dyadic)."""
+    rng = onp.random.RandomState(13)
+    r, u, heads, bs, nb, mb = 3, 32, 4, 4, 9, 4
+    x = _dyadic(rng, (r, 1, u), 4)
+    wq, bq = _dyadic(rng, (3 * u, u), 8), _dyadic(rng, (3 * u,), 4)
+    wo = (rng.randn(u, u) * 0.3).astype(onp.float32)
+    bo = rng.randn(u).astype(onp.float32)
+    d = u // heads
+    pool = rng.randn(nb, heads, bs, d).astype(onp.float32)
+    if store == "int8":
+        pool = onp.asarray(jnn.kv_cache_quantize(jnp.asarray(pool)))
+    bt = onp.array([[0, 1, 8, 8], [2, 3, 4, 8], [5, 8, 8, 8]], onp.int32)
+    pos = onp.array([2, 9, 0], onp.int32)
+    jout, jpk, _ = jfused.fused_decode_step(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(bq), jnp.asarray(wo),
+        jnp.asarray(bo), jnp.asarray(pool), jnp.asarray(pool),
+        jnp.asarray(bt), jnp.asarray(pos), heads=heads, units=u,
+        interpret=True)
+    tpk, tpv = _t(pool.copy()), _t(pool.copy())
+    out, tpk, _ = tfused.fused_decode_step(
+        _t(x), _t(wq), _t(bq), _t(wo), _t(bo), tpk, tpv, _t(bt), _t(pos),
+        heads=heads, units=u)
+    tol = 2e-4 if store == "int8" else 2e-5
+    onp.testing.assert_allclose(out.numpy(), onp.asarray(jout), rtol=tol,
+                                atol=tol)
+    if store == "int8":
+        assert _int8_rows_agree(tpk.numpy(), jpk, d) == 0
+    else:
+        onp.testing.assert_allclose(tpk.numpy(), onp.asarray(jpk),
+                                    rtol=2e-5, atol=2e-5)
+
+
+def test_fused_gate(monkeypatch):
+    """auto arms for CUDA devices and stays off on the CPU; env 0/1 win;
+    no_kernels always disarms."""
+    monkeypatch.setenv("MXNET_TPU_LLM_FUSED_DECODE", "auto")
+    assert tfused.fused_decode_armed(torch.device("cpu")) is False
+    assert tfused.fused_decode_armed(torch.device("cuda", 0)) is True
+    monkeypatch.setenv("MXNET_TPU_LLM_FUSED_DECODE", "1")
+    assert tfused.fused_decode_armed(torch.device("cpu")) is True
+    with tnn.no_kernels():
+        assert tfused.fused_decode_armed(torch.device("cuda", 0)) is False
+    monkeypatch.setenv("MXNET_TPU_LLM_FUSED_DECODE", "0")
+    assert tfused.fused_decode_armed(torch.device("cuda", 0)) is False
+
+
+def test_wrappers_dispatch_by_device_and_count_only_launches():
+    """CPU tensors take the plain version and count no launch; tensors on
+    an unsupported device or on mixed devices raise instead of falling
+    back."""
+    before = tln.fused_layer_norm.launches
+    x = torch.randn(4, 8)
+    tln.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
+    assert tln.fused_layer_norm.launches == before
+    with pytest.raises(Exception, match="no kernel for device"):
+        _build.on_cpu("k", torch.empty(2, device="meta"))
+    with pytest.raises(Exception, match="several devices"):
+        _build.on_cpu("k", torch.empty(2), torch.empty(2, device="meta"))
