@@ -3,8 +3,9 @@
 NVIDIA H100.
 
     python3 chip_smoke.py              # the run that must pass
-    python3 chip_smoke.py --profile    # also a torch.profiler table of
-                                       # one decode step, by kernel
+    python3 chip_smoke.py --profile    # also torch.profiler tables of one
+                                       # decode step and one train step,
+                                       # by kernel
 
 Phases (each asserts; any failure exits non-zero before the result line):
 
@@ -20,7 +21,10 @@ Phases (each asserts; any failure exits non-zero before the result line):
    held to exactly known rows on inputs built to expose a wrong rounding
    (:func:`qkv_rounding_probe`), and every other dtype variant the
    wrappers launch (bfloat16 activations, bfloat16 / float16 / float32
-   KV stores and pools) is checked against its plain version once.
+   KV stores and pools) is checked against its plain version once. The
+   training slice's kernels (K1 flash-attention forward, K1c dQ, K1d
+   dK/dV, K3 logsumexp) are timed at the train step's shapes and checked
+   in their other cases (:func:`train_kernel_checks`).
 3. The main path: gpt_like at full width (vocab 32000, units 768, hidden
    3072, 12 layers, 12 heads, max_length 2048) with seeded numpy weights
    loaded through ``from_jax_params``, served by ``LLMEngine`` with its
@@ -35,6 +39,12 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``generate``.
 5. Decode-step time: the same decode step through the decode program,
    device time against host time, kernels and plain.
+6. Train-step check: one full-width backward at B 2, L 1024 through the
+   kernels against the same under ``no_kernels`` (:func:`train_grad_check`).
+7. The train main path: the same gpt_like trains through
+   ``SoftmaxCrossEntropyLoss`` and ``Trainer`` (SGD, momentum 0.9) on 8
+   sequences of 1024 seeded tokens, a warm-up step and 5 timed steps with
+   exact launch counts and a falling loss (:func:`train_phase`).
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -69,6 +79,15 @@ KERNELS = {
                     "mxnet_tpu/ops/pallas/fused_decode.py:92"),
     "out_project": ("mxnet_tpu_torch/csrc/fused_decode.cu",
                     "mxnet_tpu/ops/pallas/fused_decode.py:120"),
+    # one kernel for K1a (:70) and K1b (:144); gpt_like's path runs K1b
+    "flash_attention_fwd": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                            "mxnet_tpu/ops/pallas/flash_attention.py:144"),
+    "flash_attention_bwd_dq": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                               "mxnet_tpu/ops/pallas/flash_attention.py:379"),
+    "flash_attention_bwd_dkv": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                                "mxnet_tpu/ops/pallas/flash_attention.py:432"),
+    "cross_entropy_lse": ("mxnet_tpu_torch/csrc/cross_entropy.cu",
+                          "mxnet_tpu/ops/pallas/cross_entropy.py:34"),
 }
 LINE_KEYS = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -510,6 +529,179 @@ def variant_checks(torch, dev):
     return out
 
 
+def live_pairs(lq, lk, causal):
+    """(query, key) pairs attention counts: all of them, or those under
+    the bottom-right causal mask k <= q + (lk - lq)."""
+    if not causal:
+        return lq * lk
+    return sum(min(lk, max(0, q + lk - lq + 1)) for q in range(lq))
+
+
+def attention_cost(b, h, lq, lk, d, causal, itemsize):
+    """Bytes and f32 operations of the three attention kernels at one
+    shape: every input read once and every output written once, and 2
+    operations per multiply-add over the live pairs (2 products
+    forward, 3 for dQ, 4 for dK/dV)."""
+    pairs = b * h * live_pairs(lq, lk, causal)
+    q_t, kv_t = b * h * lq * d * itemsize, b * h * lk * d * itemsize
+    vec = 4 * b * h * lq                      # lse or D, f32
+    return {"fwd": (q_t + 2 * kv_t + q_t + vec, 4 * d * pairs),
+            "dq": (3 * q_t + 2 * kv_t + vec + q_t + vec, 6 * d * pairs),
+            "dkv": (2 * q_t + 2 * kv_t + 2 * vec + 2 * kv_t, 8 * d * pairs)}
+
+
+def flash_case(torch, kfa, q, k, v, go, causal):
+    """K1 forward, K1c and K1d and their plain versions on one input set,
+    each kernel fed the kernel's own upstream results and each plain
+    version the same. Returns {part: (errors, max |ref|)}."""
+    with torch.no_grad():
+        out, lse = kfa.flash_forward(q, k, v, causal)
+        pout, plse = kfa.flash_forward_plain(q, k, v, causal)
+        dq, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, causal)
+        pdq, pdelta = kfa.flash_backward_dq_plain(q, k, v, out, lse, go,
+                                                  causal)
+        dk, dv = kfa.flash_backward_dkv(q, k, v, go, lse, delta, causal)
+        pdk, pdv = kfa.flash_backward_dkv_plain(q, k, v, go, lse, delta,
+                                                causal)
+    live = plse > -1e29                   # rows that see a key
+    res = {}
+    for part, pairs in (("out", ((out, pout),)),
+                        ("lse", ((lse[live], plse[live]),)),
+                        ("dq", ((dq, pdq), (delta, pdelta))),
+                        ("dkv", ((dk, pdk), (dv, pdv)))):
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in pairs]
+        scale = max(b.float().abs().max().item() for _, b in pairs)
+        check(all(torch.isfinite(a).all().item() for a, _ in pairs),
+              f"flash {part}: non-finite")
+        res[part] = (max(errs), scale)
+    return res
+
+
+# Tolerances of the attention kernels against their plain versions, as a
+# share of the reference's largest magnitude. f32: sums of up to 1024
+# terms in another order (and an online against a two-pass softmax),
+# about 1e-6 of the magnitude; 1e-5 leaves ten times that. bf16: p and
+# ds are rounded to bf16 (2^-8 relative) at another scale (the running
+# against the final max), and the outputs once more: 2^-5 of the largest
+# value, four bf16 steps of it.
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+
+
+def train_kernel_checks(torch, dev):
+    """Phase 2, the training slice's kernels. K1 forward, K1c and K1d at
+    the train step's (8, 12, 1024, 64) causal f32 and K3 at its
+    (8184, 32000) f32 logits against their plain versions, timed, with
+    SDPA and torch.logsumexp as library yardsticks; then the other K1
+    cases (non-causal, ragged L 1000, Lq 256 < Lk 1024, bf16) and K3 in
+    bf16 once each. Returns (timed rows, other cases, extra timings)."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+    from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    rows, cases, extra = [], [], {}
+    b, h, l, d = 8, 12, 1024, 64
+    q, k, v, go = (randn(b, h, l, d) for _ in range(4))
+    res = flash_case(torch, kfa, q, k, v, go, True)
+    cost = attention_cost(b, h, l, l, d, True, 4)
+    tol = FLASH_TOL["float32"]
+    with torch.no_grad():
+        out, lse = kfa.flash_forward(q, k, v, True)
+        dq, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, True)
+    shape = f"B{b} H{h} L{l} D{d} causal f32"
+    for name, part, kernel, plain, lib in (
+            ("flash_attention_fwd", "out",
+             lambda i: kfa.flash_forward(q, k, v, True),
+             lambda i: kfa.flash_forward_plain(q, k, v, True),
+             lambda i: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)),
+            ("flash_attention_bwd_dq", "dq",
+             lambda i: kfa.flash_backward_dq(q, k, v, out, lse, go, True),
+             lambda i: kfa.flash_backward_dq_plain(q, k, v, out, lse, go,
+                                                   True), None),
+            ("flash_attention_bwd_dkv", "dkv",
+             lambda i: kfa.flash_backward_dkv(q, k, v, go, lse, delta, True),
+             lambda i: kfa.flash_backward_dkv_plain(q, k, v, go, lse, delta,
+                                                    True), None)):
+        err, scale = res[part]
+        if part == "out":
+            err = max(err, res["lse"][0] / max(res["lse"][1], 1.0))
+        nbytes, flops = cost["fwd" if part == "out" else part]
+        with torch.no_grad():
+            rows.append(measure(name, shape, err, tol * max(scale, 1.0),
+                                kernel, plain, lib, nbytes, flops))
+    # SDPA forward + backward beside the three kernels, one call each
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd(i):
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        torch.autograd.grad(o, (qs, ks, vs), go)
+
+    extra["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, iters=20)[0]
+    extra["k1_fwd_dq_dkv_ms"] = sum(r["ms"] for r in rows)
+    print(f"attention fwd + bwd at {shape}: K1 forward + K1c + K1d "
+          f"{extra['k1_fwd_dq_dkv_ms']:.5f} ms, SDPA forward + backward "
+          f"{extra['sdpa_fwd_bwd_ms']:.5f} ms", flush=True)
+    del q, k, v, go, out, lse, dq, delta, qs, ks, vs
+
+    for case, (b, h, lq, lk, d, causal, dt) in {
+            "non-causal": (2, 12, 1024, 1024, 64, False, torch.float32),
+            "ragged L 1000": (2, 12, 1000, 1000, 64, True, torch.float32),
+            "Lq 256 < Lk 1024": (2, 12, 256, 1024, 64, True, torch.float32),
+            "bf16": (8, 12, 1024, 1024, 64, True, torch.bfloat16)}.items():
+        q, go = randn(b, h, lq, d, dtype=dt), randn(b, h, lq, d, dtype=dt)
+        k, v = randn(b, h, lk, d, dtype=dt), randn(b, h, lk, d, dtype=dt)
+        res = flash_case(torch, kfa, q, k, v, go, causal)
+        tol = FLASH_TOL[str(dt)[6:]]
+        for part, (err, scale) in res.items():
+            limit = tol * max(scale, 1.0)
+            print(f"flash {part} {case} B{b} H{h} Lq{lq} Lk{lk} D{d}: "
+                  f"max_abs_err {err:.3e} (limit {limit:.3e})", flush=True)
+            check(err <= limit, f"flash {part} {case}: {err} > {limit}")
+            cases.append({"name": "flash_attention", "case": case,
+                          "part": part, "max_abs_err": err, "limit": limit})
+        del q, k, v, go
+
+    # K3: the loss's (8 * 1023, 32000) logits, about 5% of labels -1
+    n, vocab = 8 * 1023, 32000
+    x = randn(n, vocab) * 2.0
+    labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
+    labels[torch.rand(n, generator=g, device=dev) < 0.05] = -1
+    lse = kce.fused_lse(x)
+    err = (lse - kce.lse_plain(x)).abs().max().item()
+    nll = kce.cross_entropy_with_logits(x, labels)
+    with tnn.no_kernels():
+        pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
+    nll_err = (nll - pnll).abs().max().item()
+    ignored = labels < 0
+    check(bool((nll[ignored] == 0).all().item()), "K3: ignored rows not 0")
+    print(f"cross_entropy_with_logits ({n}, {vocab}) f32, "
+          f"{int(ignored.sum().item())} labels -1: nll max_abs_err "
+          f"{nll_err:.3e} against the no_kernels path", flush=True)
+    # lse of 32000 exponentials summed in another order: a few f32 ulps
+    # of values near 12
+    rows.append(measure(
+        "cross_entropy_lse", f"({n}, {vocab}) f32", max(err, nll_err), 1e-5,
+        lambda i: kce.fused_lse(x), lambda i: kce.lse_plain(x),
+        lambda i: torch.logsumexp(x, -1), 4 * n * vocab + 4 * n,
+        4 * n * vocab))
+    xb = x.bfloat16()
+    err = (kce.fused_lse(xb) - kce.lse_plain(xb)).abs().max().item()
+    print(f"cross_entropy_lse ({n}, {vocab}) bf16: max_abs_err {err:.3e} "
+          f"(limit 1e-5)", flush=True)
+    check(err <= 1e-5, f"cross_entropy_lse bf16: {err}")
+    cases.append({"name": "cross_entropy_lse", "case": "bf16",
+                  "max_abs_err": err, "limit": 1e-5})
+    return rows, cases, extra
+
+
 def seeded_params(model, seed):
     """Numpy weights under the reference's parameter names: normal with
     std 0.02 (LayerNorm gains 1 + that)."""
@@ -582,6 +774,190 @@ def profile_decode(torch, run, args, gen):
     return dev_us / 3e3 if dev_us else None
 
 
+TRAIN_B, TRAIN_L, TRAIN_STEPS = 8, 1024, 5
+# launches per train step of gpt_like (12 layers): K1 forward, K1c and
+# K1d once per layer, K3 once, K2 for ln1, ln2 of each layer and final_ln
+TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                  "flash_attention_bwd_dkv": 12, "cross_entropy_lse": 1,
+                  "layer_norm_fwd": 25, "paged_attention": 0,
+                  "qkv_project": 0, "out_project": 0}
+
+
+def kernel_wrappers():
+    """name in the kernels line -> the wrapper that counts its launches"""
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+    from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.ops.kernels import fused_decode as kfd
+    from mxnet_tpu_torch.ops.kernels import layer_norm as kln
+    from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
+
+    return {"layer_norm_fwd": kln.fused_layer_norm,
+            "paged_attention": kpa.paged_attention_kernel,
+            "qkv_project": kfd.fused_qkv_project,
+            "out_project": kfd.fused_out_project,
+            "flash_attention_fwd": kfa.flash_forward,
+            "flash_attention_bwd_dq": kfa.flash_backward_dq,
+            "flash_attention_bwd_dkv": kfa.flash_backward_dkv,
+            "cross_entropy_lse": kce.fused_lse}
+
+
+def train_loss(model, tokens):
+    """The next-token loss of the Gluon train loop, per sequence."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    with autograd.record():
+        loss = SoftmaxCrossEntropyLoss()(model(tokens)[:, :-1],
+                                         tokens[:, 1:])
+    autograd.backward(loss)
+    return loss.detach()
+
+
+def train_grad_check(torch, model, dev, wrappers):
+    """Phase 6: one full-width backward at B 2, L 1024 through the kernels
+    and the same under ``no_kernels`` (the plain path: dense f32
+    attention, plain LayerNorm and logsumexp) on the card. The losses
+    agree to 1e-5 relative and each parameter's gradient to 1e-3 of its
+    largest magnitude (f32 sums in another order through 12 layers and
+    the 32000-way softmax); no kernel launches under ``no_kernels``; every
+    LayerNorm gain gets a non-zero gradient through K2's backward."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    tokens = torch.randint(0, CFG["vocab_size"], (2, TRAIN_L),
+                           generator=gen, device=dev)
+
+    def grads():
+        for w in wrappers.values():
+            w.launches = 0
+        loss = train_loss(model, tokens)
+        out = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return loss, out, {k: w.launches for k, w in wrappers.items()}
+
+    loss_k, grad_k, counts_k = grads()
+    with tnn.no_kernels():
+        loss_p, grad_p, counts_p = grads()
+    check(counts_k == TRAIN_LAUNCHES,
+          f"kernel step launched {counts_k} != {TRAIN_LAUNCHES}")
+    check(not any(counts_p.values()), f"no_kernels launched {counts_p}")
+    loss_err = (loss_k - loss_p).abs().max().item()
+    check(loss_err <= 1e-5 * loss_p.abs().max().item(),
+          f"train loss kernels vs plain: {loss_err}")
+    worst, worst_name = 0.0, None
+    for name, gp in grad_p.items():
+        gk = grad_k[name]
+        check(torch.isfinite(gk).all().item(), f"{name}: non-finite grad")
+        ratio = ((gk - gp).abs().max() / gp.abs().max()).item()
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if name.endswith(".gamma"):
+            check(gk.abs().max().item() > 0, f"{name}: zero gradient")
+    print(f"train step B2 L{TRAIN_L}, kernels vs no_kernels on the card: "
+          f"loss {loss_k.tolist()} vs {loss_p.tolist()} (max err "
+          f"{loss_err:.3e}); {len(grad_p)} gradients, worst max|err| / "
+          f"max|g| {worst:.3e} ({worst_name}, limit 1e-3); all "
+          f"{sum(n.endswith('.gamma') for n in grad_p)} LayerNorm gains "
+          f"have non-zero gradients; kernel launches {counts_k}",
+          flush=True)
+    check(worst <= 1e-3, f"gradient {worst_name}: {worst} > 1e-3")
+    return {"loss_err": loss_err, "worst_grad_ratio": worst,
+            "worst_grad": worst_name, "launches": counts_k}
+
+
+def profile_train_step(torch, step):
+    """``--profile``: torch.profiler over one train step; writes the table
+    by kernel to chiprun_out/train_profile.txt. Returns (device ms
+    summed over kernels, wall ms of the profiled step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    avgs = prof.key_averages()
+    table = avgs.table(sort_by="self_device_time_total", row_limit=40)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "train_profile.txt"), "w") as fh:
+        fh.write(table)
+    print(table, flush=True)
+    dev_us = sum(e.self_device_time_total for e in avgs
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+    return (dev_us / 1e3 if dev_us else None), wall_ms
+
+
+def train_phase(torch, model, dev, card, wrappers, profile):
+    """Phase 7: gpt_like trains at full width through
+    SoftmaxCrossEntropyLoss and Trainer (SGD, momentum 0.9, lr 0.01) on
+    one seeded batch of 8 x 1024 tokens: one warm-up step, then 5 timed
+    steps with exact launch counts and a falling loss."""
+    from mxnet_tpu_torch.gluon import Trainer
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    tokens = torch.randint(0, CFG["vocab_size"], (TRAIN_B, TRAIN_L),
+                           generator=gen, device=dev)
+    trainer = Trainer(dict(model.named_parameters()), "sgd",
+                      {"learning_rate": 0.01, "momentum": 0.9})
+
+    def step():
+        loss = train_loss(model, tokens)
+        trainer.step(TRAIN_B)
+        return loss
+
+    first = step().mean().item()                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    losses, host_ms, span_ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        span_ms.append(start.elapsed_time(end))
+        losses.append(loss.mean().item())
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = {k: TRAIN_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)) and np.isfinite(first),
+          f"non-finite loss {first} {losses}")
+    check(losses[-1] < first, f"loss did not fall: {first} -> {losses}")
+    check(counts == want, f"train launches {counts} != {want}")
+    step_ms = float(np.mean(host_ms))
+    out = {"batch": TRAIN_B, "seq": TRAIN_L, "warmup_loss": first,
+           "losses": losses, "host_ms": host_ms, "device_span_ms": span_ms,
+           "step_ms": step_ms, "tok_s": TRAIN_B * TRAIN_L / step_ms * 1e3,
+           "max_memory_allocated": peak, "launches": counts, "card": card}
+    print(f"train on {card}: gpt_like {CFG} B{TRAIN_B} L{TRAIN_L} SGD "
+          f"momentum 0.9 lr 0.01; loss {first:.5f} (warm-up) -> "
+          f"{[round(x, 5) for x in losses]}; step ms (host wall to a "
+          f"synchronise) {[round(x, 3) for x in host_ms]}, device span ms "
+          f"(CUDA events) {[round(x, 3) for x in span_ms]}; "
+          f"{out['tok_s']:.1f} tokens/s; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; launches over {TRAIN_STEPS} steps "
+          f"{counts}", flush=True)
+    if profile:
+        dev_ms, wall_ms = profile_train_step(torch, step)
+        out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms}
+        print(f"train step, profiler: device ms summed over kernels "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'}, "
+              f"wall ms {wall_ms:.3f}"
+              + ("" if dev_ms is None else
+                 f", device busy {dev_ms / wall_ms:.3f}"), flush=True)
+    return out
+
+
 def main(argv):
     import torch
 
@@ -595,9 +971,6 @@ def main(argv):
         generate, paged_decode_program)
     from mxnet_tpu_torch.ops import nn as tnn
     from mxnet_tpu_torch.ops.kernels import _build
-    from mxnet_tpu_torch.ops.kernels import fused_decode as kfd
-    from mxnet_tpu_torch.ops.kernels import layer_norm as kln
-    from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
     from mxnet_tpu_torch.serving.llm import LLMEngine
 
     t_start = time.perf_counter()
@@ -628,6 +1001,9 @@ def main(argv):
     # -- phase 2: kernels against their plain versions ----------------------
     rows = kernel_checks(torch, dev)
     results["variants"] = variant_checks(torch, dev)
+    train_rows, results["train_variants"], results["attention"] = \
+        train_kernel_checks(torch, dev)
+    rows += train_rows
     entries = {}
     for row in rows:
         entries.setdefault(row["name"], row)
@@ -644,10 +1020,7 @@ def main(argv):
     prompt_lens = rng.integers(16, 1025, size=8)
     prompts = [rng.integers(0, CFG["vocab_size"], size=int(p))
                .astype(np.int32) for p in prompt_lens]
-    wrappers = {"layer_norm_fwd": kln.fused_layer_norm,
-                "paged_attention": kpa.paged_attention_kernel,
-                "qkv_project": kfd.fused_qkv_project,
-                "out_project": kfd.fused_out_project}
+    wrappers = kernel_wrappers()
     with LLMEngine(model) as eng:                 # int8 KV, block 16, 8 lanes
         # warm-up request: first-call costs stay out of the measured run
         eng.generate(prompts[0][:16], 4)
@@ -668,10 +1041,10 @@ def main(argv):
              - before["counters"]["decode_steps"])
     prefills = after["counters"]["prefills"] - before["counters"]["prefills"]
     layers = CFG["num_layers"]
-    expected = {"layer_norm_fwd": (2 * layers + 1) * (prefills + steps),
-                "paged_attention": layers * steps,
-                "qkv_project": layers * steps,
-                "out_project": layers * steps}
+    expected = dict({k: 0 for k in wrappers},
+                    layer_norm_fwd=(2 * layers + 1) * (prefills + steps),
+                    paged_attention=layers * steps,
+                    qkv_project=layers * steps, out_project=layers * steps)
     print(f"served {len(prompts)} requests (prompt lengths "
           f"{prompt_lens.tolist()}, {NEW_TOKENS} new tokens each): "
           f"{prefills} prefills, {steps} decode steps, launches {counts}, "
@@ -679,7 +1052,7 @@ def main(argv):
     check(prefills == len(prompts), f"{prefills} prefills")
     check(counts == expected, f"launch counts {counts} != {expected}")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = counts[row["name"]]      # the train phase resets
     dec_s = after["decode_s"] - before["decode_s"]
     pre_s = after["prefill_s"] - before["prefill_s"]
     dec_tok = after["decode_tokens"] - before["decode_tokens"]
@@ -720,9 +1093,9 @@ def main(argv):
         del os.environ["MXNET_TPU_LLM_FUSED_DECODE"]
     else:
         os.environ["MXNET_TPU_LLM_FUSED_DECODE"] = env_fused
-    check(unfused_counts == {"layer_norm_fwd": 2 * layers + 1,
-                             "paged_attention": layers, "qkv_project": 0,
-                             "out_project": 0},
+    check(unfused_counts == dict({k: 0 for k in wrappers},
+                                 layer_norm_fwd=2 * layers + 1,
+                                 paged_attention=layers),
           f"MXNET_TPU_LLM_FUSED_DECODE=0 launched {unfused_counts}")
     # 12 layers of f32 sums in another order, plus int8 K/V of the new
     # token that may round one step apart (one step ~1% of a value)
@@ -772,6 +1145,17 @@ def main(argv):
               flush=True)
     results["decode_step"] = step
     del args, pk, pv
+
+    # -- phase 6: a train step's loss and gradients, kernels against plain --
+    results["train_check"] = train_grad_check(torch, model, dev, wrappers)
+
+    # -- phase 7: the train main path ----------------------------------------
+    train = train_phase(torch, model, dev, card, wrappers,
+                        "--profile" in argv)
+    results["train"] = train
+    for row in rows:
+        if TRAIN_LAUNCHES[row["name"]] and row["name"] != "layer_norm_fwd":
+            row["launches"] = train["launches"][row["name"]]
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

@@ -9,7 +9,8 @@ unless the caller passes ``device="cpu"``.
 from . import base, context
 from .base import FatalError, MXNetError, TransientError
 from .context import cpu, gpu
-from . import ops, gluon, serving, convert
+from . import autograd, ops, optimizer, gluon, serving, convert
 
-__all__ = ["base", "context", "ops", "gluon", "serving", "convert", "cpu",
-           "gpu", "MXNetError", "TransientError", "FatalError"]
+__all__ = ["base", "context", "autograd", "ops", "optimizer", "gluon",
+           "serving", "convert", "cpu", "gpu", "MXNetError", "TransientError",
+           "FatalError"]

@@ -1,10 +1,10 @@
-"""Carry parameters of the JAX package into the PyTorch port.
+"""Carry parameters between the JAX package and the PyTorch port.
 
 The port's modules use the reference's attribute names, so a model's
 ``state_dict()`` keys are exactly the reference's ``collect_params()``
 names and layouts (``Dense.weight`` is (out, in) in both). Loading is a
 checked ``load_state_dict``: names and shapes must cover the model
-exactly.
+exactly. :func:`to_jax_params` goes the other way.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "to_jax_params"]
 
 
 def _to_tensor(arr) -> torch.Tensor:
@@ -46,3 +46,16 @@ def from_jax_params(params: Mapping[str, "onp.ndarray"],
         state[name] = src.to(dtype=ref.dtype, device=ref.device)
     model.load_state_dict(state, strict=True)
     return model.state_dict()
+
+
+def to_jax_params(model: torch.nn.Module) -> Dict[str, "onp.ndarray"]:
+    """The reverse of :func:`from_jax_params`: reference parameter name ->
+    numpy array on the host, in the parameter's dtype (bfloat16 widens
+    exactly to float32, since numpy has no bfloat16 of its own)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out

@@ -1,4 +1,6 @@
-"""Gluon layers and model zoo of the PyTorch port."""
-from . import nn, model_zoo
+"""Gluon layers, losses, the Trainer and the model zoo of the PyTorch
+port."""
+from . import nn, loss, model_zoo
+from .trainer import Trainer
 
-__all__ = ["nn", "model_zoo"]
+__all__ = ["nn", "loss", "model_zoo", "Trainer"]

@@ -48,6 +48,18 @@ class _CausalLM(nn.Module):
     def _head(self, seq):
         return torch.matmul(seq, self.word_embed.weight.t())
 
+    def forward(self, token_ids):
+        """Logits (B, L, V) of ``token_ids`` (B, L) at positions [0, L):
+        the training forward, causal flash attention in every layer."""
+        l = token_ids.shape[1]
+        rows = self.pos_embed.shape[0]
+        if l > rows:
+            # the reference's pos_embed[:l] then fails to broadcast
+            raise MXNetError(f"sequence length {l} exceeds the model's "
+                             f"context window (max_length={rows})")
+        emb = self.word_embed(token_ids) + self.pos_embed[:l][None]
+        return self._head(self.encoder(emb))
+
     def decode_step(self, token_ids, cache_k, cache_v, pos: int):
         """KV-cache forward of ``token_ids`` (B, T) at absolute positions
         [pos, pos+T). Returns (logits (B, T, V), cache_k, cache_v), the

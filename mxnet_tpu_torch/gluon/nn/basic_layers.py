@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...autograd import is_training
 from ...ops import nn as F
 
 __all__ = ["Dense", "Embedding", "Dropout"]
@@ -63,14 +64,14 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Drops activations with rate ``rate`` in training mode; identity at
-    inference, which is all the serving slice runs."""
+    """Zeroes activations with rate ``rate`` while
+    :func:`~mxnet_tpu_torch.autograd.is_training` (inside
+    ``autograd.record()``); identity otherwise. Draws from
+    :func:`~..ops.nn.dropout_generator` of the input's device."""
 
     def __init__(self, rate):
         super().__init__()
         self._rate = rate
 
     def forward(self, x):
-        if not self.training or not self._rate:
-            return x
-        return torch.nn.functional.dropout(x, p=self._rate, training=True)
+        return F.dropout(x, p=self._rate, training=is_training())

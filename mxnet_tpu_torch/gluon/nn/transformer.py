@@ -1,9 +1,10 @@
 """Transformer building blocks of the PyTorch port (counterpart of
-``mxnet_tpu/gluon/nn/transformer.py``), limited to the incremental
-(KV-cache) paths the serving slice runs: ``forward_step`` over a dense
-per-request cache (prefill) and ``forward_step_paged`` over a shared
-block pool (decode). The non-incremental ``forward`` goes through flash
-attention and belongs to the training slice.
+``mxnet_tpu/gluon/nn/transformer.py``): the full-sequence ``forward``
+the training slice runs (attention through :func:`~..ops.nn.attend`,
+flash attention with no mask and no training dropout), and the
+incremental (KV-cache) paths the serving slice runs: ``forward_step``
+over a dense per-request cache (prefill) and ``forward_step_paged`` over
+a shared block pool (decode).
 
 Caches and pools are written IN PLACE (the reference writes functional
 copies, donated on the TPU); every method still returns them, so call
@@ -16,7 +17,8 @@ import math
 import torch
 from torch import nn
 
-from ...ops.nn import (kv_cache_dequantize, kv_cache_quantize,
+from ...autograd import is_training
+from ...ops.nn import (attend, kv_cache_dequantize, kv_cache_quantize,
                        paged_attention, paged_write)
 from .basic_layers import Dense, Dropout
 from .norm_layers import LayerNorm
@@ -42,6 +44,17 @@ class MultiHeadAttention(nn.Module):
                          in_units=units, dtype=dtype, device=device)
         self.out_proj = Dense(units, use_bias=use_bias, flatten=False,
                               in_units=units, dtype=dtype, device=device)
+
+    def forward(self, x, mask=None):
+        """Self attention over the whole sequence ``x`` (B, L, units);
+        dropout on the attention weights while training."""
+        units = self._units
+        p = self.qkv(x)
+        out = attend(p[..., :units], p[..., units:2 * units],
+                     p[..., 2 * units:], self._heads, causal=self._causal,
+                     mask=mask, dropout=self._dropout,
+                     training=is_training())
+        return self.out_proj(out)
 
     def forward_step(self, x, cache_k, cache_v, pos: int):
         """Incremental attention: ``x`` is (B, T, units) at absolute
@@ -170,6 +183,16 @@ class TransformerEncoderLayer(nn.Module):
         self.ln2 = LayerNorm(in_channels=units, dtype=dtype, device=device)
         self.dropout = Dropout(dropout) if dropout else None
 
+    def forward(self, x, mask=None):
+        """Full-sequence step; dropout after attention and after the FFN
+        while training."""
+        drop = self.dropout if self.dropout is not None else (lambda h: h)
+        if self._pre_norm:
+            x = x + drop(self.attn(self.ln1(x), mask=mask))
+            return x + drop(self.ffn(self.ln2(x)))
+        x = self.ln1(x + drop(self.attn(x, mask=mask)))
+        return self.ln2(x + drop(self.ffn(x)))
+
     def forward_step(self, x, cache_k, cache_v, pos: int):
         """KV-cache step (no dropout: decode is inference)."""
         if self._pre_norm:
@@ -211,6 +234,14 @@ class TransformerEncoder(nn.Module):
                 device=device))
         self.final_ln = (LayerNorm(in_channels=units, dtype=dtype,
                                    device=device) if pre_norm else None)
+
+    def forward(self, x, mask=None):
+        """Full-sequence forward through the stack."""
+        for i in range(self._num_layers):
+            x = getattr(self, f"layer{i}")(x, mask=mask)
+        if self.final_ln is not None:
+            x = self.final_ln(x)
+        return x
 
     def forward_step(self, x, cache_k, cache_v, pos: int):
         """KV-cache step through the stack; caches are

@@ -28,12 +28,14 @@ import torch
 from ...base import FatalError
 
 __all__ = ["KERNEL_SOURCES", "DTYPE_CODES", "dtype_code", "load",
-           "build_all", "check", "stream_ptr", "build_log"]
+           "build_all", "check", "stream_ptr", "build_log", "on_cpu",
+           "require", "refuse_grad"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
-KERNEL_SOURCES = ("layer_norm", "paged_attention", "fused_decode")
+KERNEL_SOURCES = ("layer_norm", "paged_attention", "fused_decode",
+                  "flash_attention", "cross_entropy")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,6 +64,14 @@ _SIGNATURES = {
     "fused_decode": {
         "mxt_qkv_project": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "mxt_out_project": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "mxt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+        "mxt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+        "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    },
+    "cross_entropy": {
+        "mxt_row_lse": [_P, _P, _I64, _I64, _I, _I, _P],
     },
 }
 
@@ -188,6 +198,21 @@ def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise FatalError(f"{what}: no kernel for device {dev}")
     return False
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """A kernel wrapper's output carries no autograd graph on the card,
+    while the plain version's would on the CPU. So a raw wrapper raises,
+    on both devices, when grad mode is on and an input requires grad:
+    the differentiable entry points are the ``torch.autograd.Function``s
+    (``fused_layer_norm``, ``flash_attention``,
+    ``cross_entropy_with_logits``); serving runs under ``no_grad``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise FatalError(
+            f"{what}: an input requires grad and grad mode is on, but the "
+            "kernel's output would carry no gradient; call it under "
+            "torch.no_grad() or through its autograd entry point")
 
 
 def require(cond: bool, what: str, msg: str) -> None:

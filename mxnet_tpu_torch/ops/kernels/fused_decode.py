@@ -13,7 +13,9 @@ kernels around an in-place pool write:
 - :func:`fused_out_project` (K5b, replaces ``_out_kernel``,
   ``fused_decode.py:120``) — out projection + bias.
 
-Both projections are bound by bytes on the H100: at decode the product
+Like K4, both wrappers raise under grad mode when an input requires grad:
+decode is inference and runs under ``no_grad``. Both projections are
+bound by bytes on the H100: at decode the product
 is a rank-N update (N = lanes), so the cost is reading the weights once
 (7.08 MB of f32 W_qkv and 2.36 MB of W_out per layer at units 768). The
 kernels live in ``csrc/fused_decode.cu``; each wrapper takes its plain
@@ -113,6 +115,7 @@ def fused_qkv_project(x, w_qkv, b_qkv, *, heads, store_dtype):
     int8 + bitcast scale when ``store_dtype`` is int8, a cast otherwise."""
     what = "fused_qkv_project"
     tensors = [x, w_qkv] + ([b_qkv] if b_qkv is not None else [])
+    _build.refuse_grad(what, *tensors)
     if _build.on_cpu(what, *tensors):
         return qkv_project_plain(x, w_qkv, b_qkv, heads, store_dtype)
     n, u = x.shape
@@ -146,6 +149,7 @@ def fused_out_project(attn, w_out, b_out):
     Returns (N, U_out) in ``attn``'s dtype."""
     what = "fused_out_project"
     tensors = [attn, w_out] + ([b_out] if b_out is not None else [])
+    _build.refuse_grad(what, *tensors)
     if _build.on_cpu(what, *tensors):
         return out_project_plain(attn, w_out, b_out)
     n, u_in = attn.shape

@@ -1,4 +1,4 @@
-"""K2 — fused LayerNorm forward (counterpart of
+"""K2 — fused LayerNorm (counterpart of
 ``mxnet_tpu/ops/pallas/layer_norm.py``).
 
 Replaces ``_ln_kernel`` (``ops/pallas/layer_norm.py:32``, reached
@@ -7,11 +7,14 @@ CUDA kernel in ``csrc/layer_norm.cu``: one block per row, f32 mean and
 centred variance, writing ``y``, ``mean`` and ``rstd``. Bound on the
 H100: bytes (one read and one write per element); at the decode shape
 (8, 768) it is launch-bound. Every ``LayerNorm`` of gpt_like (``ln1``,
-``ln2``, ``final_ln``) runs it: 2L+1 launches per forward step.
+``ln2``, ``final_ln``) runs it: 2L+1 launches per forward.
 
-:func:`fused_layer_norm` launches the kernel for CUDA tensors and takes
-:func:`layer_norm_plain` for CPU tensors. The backward belongs to the
-training slice; the saved statistics are returned for it.
+:func:`fused_layer_norm` is a ``torch.autograd.Function`` on both
+devices, as the reference's is a ``jax.custom_vjp``: its forward
+launches the kernel for CUDA tensors (:func:`layer_norm_plain` for CPU
+tensors) and saves ``x``, gamma, mean and rstd; its backward is the
+plain PyTorch port of the reference's ``_ln_bwd`` (``:126``), which XLA
+runs there too.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_layer_norm", "layer_norm_plain"]
+__all__ = ["fused_layer_norm", "layer_norm_plain", "layer_norm_backward"]
 
 
 def _out_dtype(x, gamma, beta):
@@ -39,10 +42,23 @@ def layer_norm_plain(x, gamma, beta, eps: float = 1e-5):
     return y.to(_out_dtype(x, gamma, beta)), mean[:, 0], rstd[:, 0]
 
 
-def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """LayerNorm over the last axis of (N, D). Returns
-    ``(y, mean, rstd)``. CUDA tensors: the K2 kernel (x, gamma and beta
-    of one dtype, float32 or bfloat16, contiguous, D <= 8192)."""
+def layer_norm_backward(x, gamma, mean, rstd, g, beta_dtype):
+    """``_ln_bwd`` of the reference: dx, dgamma and dbeta from the saved
+    statistics, in f32, cast back to the inputs' dtypes."""
+    xf = x.float()
+    gf = g.float()
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    dy = gf * gamma.float()[None, :]
+    m1 = dy.mean(dim=-1, keepdim=True)
+    m2 = (dy * xhat).mean(dim=-1, keepdim=True)
+    dx = ((dy - m1 - xhat * m2) * rstd[:, None]).to(x.dtype)
+    dgamma = (gf * xhat).sum(dim=0).to(gamma.dtype)
+    dbeta = gf.sum(dim=0).to(beta_dtype)
+    return dx, dgamma, dbeta
+
+
+def _ln_forward(x, gamma, beta, eps):
+    """The K2 launch (CUDA tensors) or its plain version (CPU tensors)."""
     what = "fused_layer_norm"
     if _build.on_cpu(what, x, gamma, beta):
         return layer_norm_plain(x, gamma, beta, eps)
@@ -69,6 +85,31 @@ def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
     _build.check(err, what)
     fused_layer_norm.launches += 1
     return y, mean, rstd
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = _ln_forward(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.beta_dtype = beta.dtype
+        ctx.mark_non_differentiable(mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _grstd):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_backward(x, gamma, mean, rstd, gy,
+                                                ctx.beta_dtype)
+        return dx, dgamma, dbeta, None
+
+
+def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """LayerNorm over the last axis of (N, D). Returns
+    ``(y, mean, rstd)``; ``y`` is differentiable in x, gamma and beta.
+    CUDA tensors: the K2 kernel (x, gamma and beta of one dtype, float32
+    or bfloat16, contiguous, D <= 8192)."""
+    return _LayerNorm.apply(x, gamma, beta, float(eps))
 
 
 fused_layer_norm.launches = 0

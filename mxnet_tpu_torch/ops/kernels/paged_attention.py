@@ -68,8 +68,10 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, lengths):
     entries at its trash block. Returns (R, H, D) in the pool's dtype
     (float pools) or ``q``'s dtype (int8 pools). CUDA tensors: the K4
     kernel (q float32 or bfloat16, D <= 256, D % 4 == 0 for int8 pools,
-    all contiguous)."""
+    all contiguous). Raises under grad mode when an input requires grad
+    (decode runs under ``no_grad``)."""
     what = "paged_attention_kernel"
+    _build.refuse_grad(what, q, k_pool, v_pool)
     if _build.on_cpu(what, q, k_pool, v_pool, block_table, lengths):
         return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
     r, h, d = q.shape

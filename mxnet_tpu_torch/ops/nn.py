@@ -1,13 +1,14 @@
 """Neural-network operators of the PyTorch port (counterpart of
-``mxnet_tpu/ops/nn.py``), limited to what the serving slice runs.
+``mxnet_tpu/ops/nn.py``), limited to what the serving and training
+slices run.
 
-Kernel dispatch: :func:`layer_norm` and :func:`paged_attention` hand
-their tensors to the hand-written kernels' wrappers
-(:mod:`.kernels`), and a wrapper launches its CUDA kernel for a CUDA
-tensor and takes its plain PyTorch version for a CPU tensor. Inside a
-:class:`no_kernels` scope every site takes the plain path instead,
-whatever the device — that is how a run holds the kernels against the
-plain arithmetic on the card.
+Kernel dispatch: :func:`layer_norm`, :func:`attend`,
+:func:`softmax_cross_entropy` and :func:`paged_attention` hand their
+tensors to the hand-written kernels' wrappers (:mod:`.kernels`), and a
+wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
+PyTorch version for a CPU tensor. Inside a :class:`no_kernels` scope
+every site takes the plain path instead, whatever the device — that is
+how a run holds the kernels against the plain arithmetic on the card.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["fully_connected", "activation", "embedding", "layer_norm",
+           "dropout", "dropout_generator", "seed", "attend", "softmax",
+           "log_softmax", "pick", "softmax_cross_entropy",
            "kv_cache_quantize", "kv_cache_dequantize", "paged_write",
            "paged_attention", "no_kernels", "kernels_enabled"]
 
@@ -64,6 +67,47 @@ def embedding(indices, weight):
     in range: on a CUDA tensor an out-of-range index is a device-side
     assert, so callers bound token ids on the host."""
     return weight[indices.long()]
+
+
+# ---------------------------------------------------------------------------
+# dropout randomness
+# ---------------------------------------------------------------------------
+# One torch.Generator per device (JAX threefry keys have no torch
+# counterpart; the two never draw the same bits).
+_generators: dict = {}
+_seed = [0]
+
+
+def seed(value: int) -> None:
+    """Reseed the dropout generators of every device."""
+    _seed[0] = int(value)
+    for g in _generators.values():
+        g.manual_seed(_seed[0])
+
+
+def dropout_generator(device) -> torch.Generator:
+    """The ``torch.Generator`` dropout draws from on ``device``."""
+    device = torch.device(device)
+    g = _generators.get(device)
+    if g is None:
+        g = _generators[device] = torch.Generator(device=device)
+        g.manual_seed(_seed[0])
+    return g
+
+
+def dropout(x, p=0.5, training=True):
+    """reference src/operator/nn/dropout.cc: keep each value with
+    probability 1 - p and scale it by 1 / (1 - p). The mask draws from
+    :func:`dropout_generator` of x's device."""
+    if not training or p <= 0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=dropout_generator(x.device),
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+_dropout = dropout      # attend() takes a rate named ``dropout``
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +161,110 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     bshape = [1] * x.dim()
     bshape[axis] = x.shape[axis]
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+# ---------------------------------------------------------------------------
+# softmax family and the loss
+# ---------------------------------------------------------------------------
+def softmax(x, axis=-1):
+    """reference src/operator/nn/softmax.cc"""
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1):
+    return torch.log_softmax(x, dim=axis)
+
+
+def pick(data, index, axis=-1, keepdims=False):
+    """reference src/operator/tensor/broadcast_reduce_op_index.cc pick
+    (indices clipped into range)."""
+    ax = axis % data.dim()
+    idx = index.long().clamp(0, data.shape[ax] - 1).unsqueeze(ax)
+    out = torch.gather(data, ax, idx)
+    return out if keepdims else out.squeeze(ax)
+
+
+class _ClampValueOnly(torch.autograd.Function):
+    """min(nll, -log(1e-8)) in the value, identity in the gradient (the
+    reference backward is softmax - onehot unconditionally)."""
+
+    @staticmethod
+    def forward(ctx, nll):
+        cap = -torch.log(torch.tensor(1e-8, dtype=torch.float32))
+        return torch.minimum(nll, cap.to(nll.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def softmax_cross_entropy(data, label, per_example=False):
+    """Sparse-label softmax cross entropy (reference
+    src/operator/loss_binary_op.cc:30 ``softmax_cross_entropy``).
+
+    ``data`` (N, V) logits, ``label`` (N,) class indices. The default is
+    the reference contract: a shape-(1,) sum over rows of the NLL clamped
+    in value (not in gradient) at ``-log(1e-8)``, in data's dtype.
+    ``per_example=True`` returns the unclamped per-row NLL in f32. Rows
+    with a negative label contribute 0.
+
+    The row reduction is the K3 kernel's wrapper through
+    :func:`~.kernels.cross_entropy.cross_entropy_with_logits`; inside
+    :class:`no_kernels` it is a plain logsumexp."""
+    if data.dim() != 2 or label.dim() != 1:
+        raise ValueError(
+            f"softmax_cross_entropy expects (N, V) data and (N,) label, "
+            f"got {tuple(data.shape)} / {tuple(label.shape)}")
+    from .kernels import cross_entropy as ce
+
+    nll = (ce.cross_entropy_with_logits(data, label) if kernels_enabled()
+           else ce.cross_entropy_plain(data, label))
+    if per_example:
+        return nll
+    return _ClampValueOnly.apply(nll).sum().reshape(1).to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def attend(q, k, v, heads, causal=False, mask=None, dropout=0.0,
+           training=False):
+    """Multi-head attention over (B, L, H*D) projections — the attention
+    core behind ``MultiHeadAttention.forward``.
+
+    No mask and no training dropout: flash attention
+    (:func:`~.kernels.flash_attention.flash_attention`, the K1 kernels on
+    the card). Otherwise, and inside :class:`no_kernels`: the masked
+    path with an f32 softmax (``ops/nn.py:1163-1181`` of the
+    reference). A boolean ``mask`` keeps True positions; any other mask
+    is added to the scores."""
+    b, lq, hidden = q.shape
+    d = hidden // heads
+    qh = q.reshape(b, lq, heads, d).transpose(1, 2)
+    kh = k.reshape(b, k.shape[1], heads, d).transpose(1, 2)
+    vh = v.reshape(b, v.shape[1], heads, d).transpose(1, 2)
+    if mask is None and not (dropout and training) and kernels_enabled():
+        from .kernels.flash_attention import flash_attention
+
+        out = flash_attention(qh, kh, vh, causal=causal)
+    else:
+        lk = kh.shape[2]
+        s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * (
+            d ** -0.5)
+        if causal:
+            cm = torch.ones((lq, lk), dtype=torch.bool,
+                            device=q.device).tril(diagonal=lk - lq)
+            s = s.masked_fill(~cm, -1e30)
+        if mask is not None:
+            if mask.dtype == torch.bool:
+                s = s.masked_fill(~mask, -1e30)
+            else:
+                s = s + mask.float()
+        p = torch.softmax(s, dim=-1)
+        if dropout and training:
+            p = _dropout(p, dropout)
+        out = torch.einsum("bhqk,bhkd->bhqd", p, vh.float()).to(q.dtype)
+    return out.transpose(1, 2).reshape(b, lq, hidden)
 
 
 # ---------------------------------------------------------------------------

@@ -226,7 +226,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of the port or chip_smoke.py names jax or mxnet_tpu; with
-    both blocked, the port imports and a tiny CPU engine serves."""
+    both blocked, the port imports, a tiny CPU engine serves, and the
+    same model takes a train step through the loss and the Trainer."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -252,6 +253,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " block_size=4) as eng:\n"
         "    out = eng.generate(np.array([1, 2, 3]), 5)\n"
         "assert out.shape == (5,) and (out >= 0).all() and (out < 41).all()\n"
+        "from mxnet_tpu_torch import autograd\n"
+        "from mxnet_tpu_torch.gluon import Trainer\n"
+        "from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss\n"
+        "from mxnet_tpu_torch.ops.kernels import cross_entropy, "
+        "flash_attention\n"
+        "x = torch.randint(0, 41, (2, 9))\n"
+        "tr = Trainer(dict(net.named_parameters()), 'adam')\n"
+        "with autograd.record():\n"
+        "    loss = SoftmaxCrossEntropyLoss()(net(x)[:, :-1], x[:, 1:])\n"
+        "autograd.backward(loss)\n"
+        "tr.step(2)\n"
+        "assert loss.shape == (2,) and torch.isfinite(loss).all()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
