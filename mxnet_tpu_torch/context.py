@@ -13,7 +13,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["gpu", "cpu", "default_device", "resolve_device"]
+__all__ = ["gpu", "cpu", "default_device", "current_context",
+           "current_device", "resolve_device"]
 
 
 def gpu(device_id: int = 0) -> torch.device:
@@ -28,11 +29,17 @@ def default_device() -> torch.device:
     return gpu(0)
 
 
+current_context = current_device = default_device
+
+
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else
-    ``gpu(0)``. A CUDA device on a machine without a usable card raises
+    """The device an entry point runs on: ``device`` when given (the
+    first of a list, as the reference's ``ctx=[...]``), else ``gpu(0)``.
+    A CUDA device on a machine without a usable card raises
     :class:`MXNetError`."""
+    if isinstance(device, (list, tuple)):
+        device = device[0] if device else None
     dev = default_device() if device is None else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -1,13 +1,13 @@
 """Loss functions of the PyTorch port (counterpart of
-``mxnet_tpu/gluon/loss.py``), limited to what the training slice runs:
-``Loss`` and ``SoftmaxCrossEntropyLoss``."""
+``mxnet_tpu/gluon/loss.py``), limited to what the slices so far run:
+``Loss``, ``L2Loss`` and ``SoftmaxCrossEntropyLoss``, as Gluon
+HybridBlocks."""
 from __future__ import annotations
 
-from torch import nn
-
 from ..ops import nn as F
+from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss"]
+__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -23,11 +23,26 @@ def _mean_over_non_batch(loss):
         else loss
 
 
-class Loss(nn.Module):
+class Loss(HybridBlock):
     def __init__(self, weight=None, batch_axis=0):
         super().__init__()
         self._weight = weight
         self._batch_axis = batch_axis
+
+
+class L2Loss(Loss):
+    """weight/2 · (label - pred)², averaged over the non-batch axes
+    (reference loss.py L2Loss); label is reshaped to pred's shape."""
+
+    def __init__(self, weight=1.0, batch_axis=0):
+        super().__init__(weight, batch_axis)
+
+    def forward(self, pred, label, sample_weight=None):
+        if label.shape != pred.shape:
+            label = label.reshape(pred.shape)
+        loss = (label - pred).square()
+        loss = _apply_weighting(loss, self._weight / 2, sample_weight)
+        return _mean_over_non_batch(loss)
 
 
 class SoftmaxCrossEntropyLoss(Loss):

@@ -4,49 +4,57 @@
 Attribute names are the reference's, so ``state_dict()`` keys are
 exactly its ``collect_params()`` names (``word_embed.weight``,
 ``pos_embed``, ``encoder.layer0.attn.qkv.weight``, ...,
-``encoder.final_ln.gamma``) and :func:`~mxnet_tpu_torch.convert.from_jax_params`
-is a checked ``load_state_dict``.
+``encoder.final_ln.gamma``), which
+:func:`~mxnet_tpu_torch.convert.from_jax_params` loads by name.
+``gpt_like`` returns the model initialized on its device (weights
+N(0, 0.02) from the port's generator, LayerNorm gains 1, biases 0),
+ready to load weights into or to run.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ...base import MXNetError
+from ...base import MXNetError, dtype_from_any
 from ...context import resolve_device
+from ...initializer import Normal
 from ...ops.nn import _KV_SCALE_BYTES
 from .. import nn as gnn
-from ..nn.basic_layers import _dtype
+from ..block import HybridBlock
 from ..nn.transformer import TransformerEncoder
 
 __all__ = ["gpt_like"]
 
 
-class _CausalLM(nn.Module):
+class _CausalLM(HybridBlock):
     """GPT-style LM: word + learned position embeddings, a causal pre-norm
-    transformer stack, and an LM head tied to the word embedding."""
+    transformer stack, and an LM head tied to the word embedding. Its
+    parameters are initialized on ``device`` at construction (``pos_embed``
+    is a torch ``nn.Parameter``, collected like the others)."""
 
     def __init__(self, vocab_size=32000, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=2048,
                  dropout=0.0, dtype="float32", device=None):
         super().__init__()
         self._units = units
-        self.word_embed = gnn.Embedding(vocab_size, units, dtype=dtype,
-                                        device=device)
-        self.pos_embed = nn.Parameter(
-            torch.empty((max_length, units), dtype=_dtype(dtype),
-                        device=device).normal_(0.0, 0.02))
+        device = resolve_device(device)
+        init = Normal(0.02)
+        self.word_embed = gnn.Embedding(vocab_size, units, dtype=dtype)
+        self.pos_embed = nn.Parameter(torch.empty(
+            (max_length, units), dtype=dtype_from_any(dtype), device=device))
+        init.init_array("pos_embed", self.pos_embed)
         self.encoder = TransformerEncoder(
             num_layers, units, hidden_size, num_heads, dropout=dropout,
             attention_dropout=dropout, causal=True, pre_norm=True,
-            dtype=dtype, device=device)
+            dtype=dtype)
+        self.initialize(init, device=device)
 
     @property
     def vocab_size(self) -> int:
         return self.word_embed.weight.shape[0]
 
     def _head(self, seq):
-        return torch.matmul(seq, self.word_embed.weight.t())
+        return torch.matmul(seq, self.word_embed.weight.data().t())
 
     def forward(self, token_ids):
         """Logits (B, L, V) of ``token_ids`` (B, L) at positions [0, L):
@@ -103,8 +111,8 @@ class _CausalLM(nn.Module):
         return (enc._num_layers, *lead, heads, d)
 
     def _zeros(self, shape, dtype):
-        return torch.zeros(shape, dtype=_dtype(dtype),
-                           device=self.word_embed.weight.device)
+        return torch.zeros(shape, dtype=dtype_from_any(dtype),
+                           device=self.word_embed.weight.data().device)
 
     def init_block_pool(self, num_blocks, block_size, dtype="float32"):
         """Zeroed (L, NB, H, block_size, D') paged K/V block pools

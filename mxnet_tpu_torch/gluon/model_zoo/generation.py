@@ -52,7 +52,7 @@ def _model_device(model, device):
     """The device an entry point runs on; the model must already be
     there (no silent moves of the caller's weights)."""
     dev = resolve_device(device)
-    have = model.word_embed.weight.device
+    have = model.word_embed.weight.data().device
     if have.type != dev.type or (dev.type == "cuda"
                                  and have.index != dev.index):
         raise MXNetError(

@@ -1,35 +1,75 @@
 """Normalization layers of the PyTorch port (counterpart of
-``mxnet_tpu/gluon/nn/norm_layers.py``): ``LayerNorm`` with parameters
-named ``gamma`` and ``beta``, through :func:`~..ops.nn.layer_norm`
-(the K2 kernel on the card)."""
+``mxnet_tpu/gluon/nn/norm_layers.py``): ``LayerNorm`` (parameters
+``gamma`` and ``beta``, through :func:`~...ops.nn.layer_norm`, the K2
+kernel on the card) and ``RMSNorm`` (``gamma``, through
+:func:`~...ops.nn.rms_norm`, the K2r kernel on the card). Without
+``in_channels`` the parameters take the normalized axis's width at the
+first forward. ``BatchNorm``, ``GroupNorm`` and ``InstanceNorm`` are not
+ported yet.
+"""
 from __future__ import annotations
 
-import torch
-from torch import nn
+from ... import numpy_extension as npx
+from ..block import HybridBlock
+from ..parameter import Parameter
 
-from ...ops import nn as F
-from .basic_layers import _dtype
-
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
-class LayerNorm(nn.Module):
+def _finalize(x, axis, *params):
+    for p in params:
+        if not p.shape_known:
+            p.shape = (x.shape[axis],)
+            p.finalize()
+
+
+class LayerNorm(HybridBlock):
     """Normalizes over ``axis`` with learned gain ``gamma`` and bias
-    ``beta`` (Ba et al. 2016). ``in_channels`` must be given."""
+    ``beta`` (Ba et al. 2016; reference LayerNorm)."""
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
-                 in_channels=0, dtype="float32", device=None):
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype="float32"):
         super().__init__()
-        if in_channels <= 0:
-            raise ValueError("LayerNorm needs in_channels > 0 in the port")
         self._axis = axis
         self._epsilon = epsilon
-        kw = {"dtype": _dtype(dtype), "device": device}
-        self.gamma = nn.Parameter(torch.ones((in_channels,), **kw),
-                                  requires_grad=scale)
-        self.beta = nn.Parameter(torch.zeros((in_channels,), **kw),
-                                 requires_grad=center)
+        shape = (in_channels,) if in_channels else (0,)
+        self.gamma = Parameter("gamma", shape=shape, dtype=dtype,
+                               init=gamma_initializer,
+                               allow_deferred_init=True,
+                               differentiable=scale)
+        self.beta = Parameter("beta", shape=shape, dtype=dtype,
+                              init=beta_initializer, allow_deferred_init=True,
+                              differentiable=center)
 
     def forward(self, x):
-        return F.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+        _finalize(x, self._axis, self.gamma, self.beta)
+        return npx.layer_norm(x, self.gamma.data(), self.beta.data(),
+                              axis=self._axis, eps=self._epsilon)
+
+    def extra_repr(self):
+        return f"axis={self._axis}, eps={self._epsilon}"
+
+
+class RMSNorm(HybridBlock):
+    """Root-mean-square normalization with a learned gain ``gamma``
+    (the JAX package's modern-transformer norm; no reference MXNet
+    counterpart)."""
+
+    def __init__(self, axis=-1, epsilon=1e-6, gamma_initializer="ones",
+                 in_channels=0, dtype="float32"):
+        super().__init__()
+        self._axis = axis
+        self._epsilon = epsilon
+        shape = (in_channels,) if in_channels else (0,)
+        self.gamma = Parameter("gamma", shape=shape, dtype=dtype,
+                               init=gamma_initializer,
+                               allow_deferred_init=True)
+
+    def forward(self, x):
+        _finalize(x, self._axis, self.gamma)
+        return npx.rms_norm(x, self.gamma.data(), axis=self._axis,
                             eps=self._epsilon)
+
+    def extra_repr(self):
+        return f"axis={self._axis}, eps={self._epsilon}"

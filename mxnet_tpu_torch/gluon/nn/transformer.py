@@ -8,18 +8,20 @@ a shared block pool (decode).
 
 Caches and pools are written IN PLACE (the reference writes functional
 copies, donated on the TPU); every method still returns them, so call
-sites read like the reference's.
+sites read like the reference's. The blocks are the port's Gluon
+:class:`~..block.HybridBlock`s; their parameters are made by
+``initialize()`` (``gpt_like`` calls it).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-from torch import nn
 
 from ...autograd import is_training
 from ...ops.nn import (attend, kv_cache_dequantize, kv_cache_quantize,
                        paged_attention, paged_write)
+from ..block import HybridBlock
 from .basic_layers import Dense, Dropout
 from .norm_layers import LayerNorm
 
@@ -27,12 +29,12 @@ __all__ = ["MultiHeadAttention", "PositionwiseFFN",
            "TransformerEncoderLayer", "TransformerEncoder"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(HybridBlock):
     """Self attention over (batch, seq, units) inputs: a (3U, U) ``qkv``
     projection and a (U, U) ``out_proj``."""
 
     def __init__(self, units, num_heads, dropout=0.0, causal=False,
-                 use_bias=True, dtype="float32", device=None):
+                 use_bias=True, dtype="float32"):
         super().__init__()
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by heads {num_heads}")
@@ -41,9 +43,9 @@ class MultiHeadAttention(nn.Module):
         self._dropout = dropout
         self._causal = causal
         self.qkv = Dense(3 * units, use_bias=use_bias, flatten=False,
-                         in_units=units, dtype=dtype, device=device)
+                         in_units=units, dtype=dtype)
         self.out_proj = Dense(units, use_bias=use_bias, flatten=False,
-                              in_units=units, dtype=dtype, device=device)
+                              in_units=units, dtype=dtype)
 
     def forward(self, x, mask=None):
         """Self attention over the whole sequence ``x`` (B, L, units);
@@ -141,21 +143,22 @@ class MultiHeadAttention(nn.Module):
         from ...ops.kernels.fused_decode import fused_decode_step
 
         return fused_decode_step(
-            x, self.qkv.weight, self.qkv.bias, self.out_proj.weight,
-            self.out_proj.bias, pool_k, pool_v, block_table, positions,
+            x, self.qkv.weight.data(), self.qkv.bias.data(),
+            self.out_proj.weight.data(), self.out_proj.bias.data(), pool_k,
+            pool_v, block_table, positions,
             heads=self._heads, units=self._units)
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(HybridBlock):
     """FFN(x) = W2 act(W1 x + b1) + b2."""
 
     def __init__(self, units, hidden_size, activation="gelu", dropout=0.0,
-                 dtype="float32", device=None):
+                 dtype="float32"):
         super().__init__()
         self.ffn_1 = Dense(hidden_size, flatten=False, in_units=units,
-                           activation=activation, dtype=dtype, device=device)
+                           activation=activation, dtype=dtype)
         self.ffn_2 = Dense(units, flatten=False, in_units=hidden_size,
-                           dtype=dtype, device=device)
+                           dtype=dtype)
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):
@@ -165,22 +168,21 @@ class PositionwiseFFN(nn.Module):
         return self.ffn_2(h)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(HybridBlock):
     """Self-attention + FFN block, pre-LN (default) or post-LN."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
                  attention_dropout=0.0, activation="gelu", causal=False,
-                 pre_norm=True, dtype="float32", device=None):
+                 pre_norm=True, dtype="float32"):
         super().__init__()
         self._pre_norm = pre_norm
         self.attn = MultiHeadAttention(units, num_heads,
                                        dropout=attention_dropout,
-                                       causal=causal, dtype=dtype,
-                                       device=device)
+                                       causal=causal, dtype=dtype)
         self.ffn = PositionwiseFFN(units, hidden_size, activation=activation,
-                                   dropout=dropout, dtype=dtype, device=device)
-        self.ln1 = LayerNorm(in_channels=units, dtype=dtype, device=device)
-        self.ln2 = LayerNorm(in_channels=units, dtype=dtype, device=device)
+                                   dropout=dropout, dtype=dtype)
+        self.ln1 = LayerNorm(in_channels=units, dtype=dtype)
+        self.ln2 = LayerNorm(in_channels=units, dtype=dtype)
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x, mask=None):
@@ -217,23 +219,22 @@ class TransformerEncoderLayer(nn.Module):
         return self.ln2(x + self.ffn(x)), pk, pv
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(HybridBlock):
     """Stack of ``num_layers`` encoder layers (``layer0`` ...) and, for
     pre-norm stacks, a ``final_ln``."""
 
     def __init__(self, num_layers, units, hidden_size, num_heads, dropout=0.0,
                  attention_dropout=0.0, activation="gelu", causal=False,
-                 pre_norm=True, dtype="float32", device=None):
+                 pre_norm=True, dtype="float32"):
         super().__init__()
         self._num_layers = num_layers
         for i in range(num_layers):
             setattr(self, f"layer{i}", TransformerEncoderLayer(
                 units, hidden_size, num_heads, dropout=dropout,
                 attention_dropout=attention_dropout, activation=activation,
-                causal=causal, pre_norm=pre_norm, dtype=dtype,
-                device=device))
-        self.final_ln = (LayerNorm(in_channels=units, dtype=dtype,
-                                   device=device) if pre_norm else None)
+                causal=causal, pre_norm=pre_norm, dtype=dtype))
+        self.final_ln = (LayerNorm(in_channels=units, dtype=dtype)
+                         if pre_norm else None)
 
     def forward(self, x, mask=None):
         """Full-sequence forward through the stack."""

@@ -56,6 +56,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "layer_norm": {
         "mxt_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _P],
+        "mxt_rms_norm_fwd": [_P, _P, _P, _P, _I64, _I, _F, _I, _P],
     },
     "paged_attention": {
         "mxt_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -205,7 +206,7 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
     while the plain version's would on the CPU. So a raw wrapper raises,
     on both devices, when grad mode is on and an input requires grad:
     the differentiable entry points are the ``torch.autograd.Function``s
-    (``fused_layer_norm``, ``flash_attention``,
+    (``fused_layer_norm``, ``fused_rms_norm``, ``flash_attention``,
     ``cross_entropy_with_logits``); serving runs under ``no_grad``."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):

@@ -1,4 +1,4 @@
-"""K2 — fused LayerNorm (counterpart of
+"""K2 — fused LayerNorm, and K2r — fused RMSNorm (counterpart of
 ``mxnet_tpu/ops/pallas/layer_norm.py``).
 
 Replaces ``_ln_kernel`` (``ops/pallas/layer_norm.py:32``, reached
@@ -15,6 +15,17 @@ launches the kernel for CUDA tensors (:func:`layer_norm_plain` for CPU
 tensors) and saves ``x``, gamma, mean and rstd; its backward is the
 plain PyTorch port of the reference's ``_ln_bwd`` (``:126``), which XLA
 runs there too.
+
+K2r replaces ``_rms_kernel`` (``:50``, reached through ``fused_rms_norm``
+``:145`` -> ``_rms_fwd`` -> ``_run_norm``) with ``rms_fwd_kernel`` in the
+same source: one block per row, ``ms = sum(x²)/D`` and ``rstd`` in f32,
+``y = x·rstd·gamma`` in f32 rounded once to the input dtype, ``rstd``
+written for the backward. Bound: bytes, as K2's (at (8192, 768) f32,
+50.4 MB). :func:`fused_rms_norm` is an autograd Function in the same
+way; its backward is the plain port of ``_rms_bwd`` (``:159``). Its
+plain version rounds ``y`` once, as the kernel does; the reference's jnp
+path (``ops.nn.rms_norm`` elsewhere) casts ``rstd`` to x's dtype first,
+so in bfloat16 the two differ by up to one ulp.
 """
 from __future__ import annotations
 
@@ -22,7 +33,8 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_layer_norm", "layer_norm_plain", "layer_norm_backward"]
+__all__ = ["fused_layer_norm", "layer_norm_plain", "layer_norm_backward",
+           "fused_rms_norm", "rms_norm_plain", "rms_norm_backward"]
 
 
 def _out_dtype(x, gamma, beta):
@@ -113,3 +125,83 @@ def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
 
 
 fused_layer_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2r: RMSNorm
+# ---------------------------------------------------------------------------
+def rms_norm_plain(x, gamma, eps: float = 1e-6):
+    """The plain PyTorch version: (N, D) -> (y, rstd (N,)), ``ms`` and
+    ``rstd`` in f32, ``y = x·rstd·gamma`` in f32 cast once to
+    ``result_type(x, gamma)`` (``_rms_kernel``'s arithmetic)."""
+    xf = x.float()
+    ms = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
+    rstd = torch.rsqrt(ms + eps)
+    y = xf * rstd * gamma.float()
+    return (y.to(torch.promote_types(x.dtype, gamma.dtype)), rstd[:, 0])
+
+
+def rms_norm_backward(x, gamma, rstd, g):
+    """``_rms_bwd`` of the reference: dx and dgamma from the saved rstd,
+    in f32, cast back to the inputs' dtypes."""
+    xf = x.float()
+    gf = g.float()
+    xhat = xf * rstd[:, None]
+    dy = gf * gamma.float()[None, :]
+    m2 = (dy * xhat).mean(dim=-1, keepdim=True)
+    dx = ((dy - xhat * m2) * rstd[:, None]).to(x.dtype)
+    dgamma = (gf * xhat).sum(dim=0).to(gamma.dtype)
+    return dx, dgamma
+
+
+def _rms_forward(x, gamma, eps):
+    """The K2r launch (CUDA tensors) or its plain version (CPU tensors)."""
+    what = "fused_rms_norm"
+    if _build.on_cpu(what, x, gamma):
+        return rms_norm_plain(x, gamma, eps)
+    _build.require(x.dim() == 2, what, f"x must be (N, D), got {tuple(x.shape)}")
+    n, d = x.shape
+    _build.require(1 <= d <= 8192, what, f"row width {d} not in [1, 8192]")
+    _build.require(tuple(gamma.shape) == (d,), what, "gamma must be (D,)")
+    _build.require(x.dtype == gamma.dtype
+                   and x.dtype in (torch.float32, torch.bfloat16), what,
+                   f"dtypes {x.dtype}/{gamma.dtype}: the kernel takes one "
+                   "dtype, float32 or bfloat16")
+    _build.require(x.is_contiguous() and gamma.is_contiguous(), what,
+                   "inputs must be contiguous")
+    lib = _build.load("layer_norm")
+    y = torch.empty_like(x)
+    rstd = torch.empty((n,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.mxt_rms_norm_fwd(
+            x.data_ptr(), gamma.data_ptr(), y.data_ptr(), rstd.data_ptr(),
+            n, d, float(eps), _build.dtype_code(x.dtype),
+            _build.stream_ptr(x.device))
+    _build.check(err, what)
+    fused_rms_norm.launches += 1
+    return y, rstd
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        y, rstd = _rms_forward(x, gamma, eps)
+        ctx.save_for_backward(x, gamma, rstd)
+        ctx.mark_non_differentiable(rstd)
+        return y, rstd
+
+    @staticmethod
+    def backward(ctx, gy, _grstd):
+        x, gamma, rstd = ctx.saved_tensors
+        dx, dgamma = rms_norm_backward(x, gamma, rstd, gy)
+        return dx, dgamma, None
+
+
+def fused_rms_norm(x, gamma, eps: float = 1e-6):
+    """RMSNorm over the last axis of (N, D). Returns ``(y, rstd)``; ``y``
+    is differentiable in x and gamma. CUDA tensors: the K2r kernel (x
+    and gamma of one dtype, float32 or bfloat16, contiguous, D <= 8192)."""
+    return _RMSNorm.apply(x, gamma, float(eps))
+
+
+fused_rms_norm.launches = 0

@@ -2,7 +2,7 @@
 ``mxnet_tpu/ops/nn.py``), limited to what the serving and training
 slices run.
 
-Kernel dispatch: :func:`layer_norm`, :func:`attend`,
+Kernel dispatch: :func:`layer_norm`, :func:`rms_norm`, :func:`attend`,
 :func:`softmax_cross_entropy` and :func:`paged_attention` hand their
 tensors to the hand-written kernels' wrappers (:mod:`.kernels`), and a
 wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["fully_connected", "activation", "embedding", "layer_norm",
-           "dropout", "dropout_generator", "seed", "attend", "softmax",
+           "rms_norm", "dropout", "generator", "dropout_generator", "seed",
+           "attend", "softmax",
            "log_softmax", "pick", "softmax_cross_entropy",
            "kv_cache_quantize", "kv_cache_dequantize", "paged_write",
            "paged_attention", "no_kernels", "kernels_enabled"]
@@ -70,23 +71,25 @@ def embedding(indices, weight):
 
 
 # ---------------------------------------------------------------------------
-# dropout randomness
+# randomness
 # ---------------------------------------------------------------------------
-# One torch.Generator per device (JAX threefry keys have no torch
-# counterpart; the two never draw the same bits).
+# One torch.Generator per device, shared by dropout, mx.np.random and the
+# initializers (JAX threefry keys have no torch counterpart; the two never
+# draw the same bits).
 _generators: dict = {}
 _seed = [0]
 
 
 def seed(value: int) -> None:
-    """Reseed the dropout generators of every device."""
+    """Reseed the generators of every device."""
     _seed[0] = int(value)
     for g in _generators.values():
         g.manual_seed(_seed[0])
 
 
-def dropout_generator(device) -> torch.Generator:
-    """The ``torch.Generator`` dropout draws from on ``device``."""
+def generator(device) -> torch.Generator:
+    """The ``torch.Generator`` the port's random draws take on
+    ``device`` (created at the current seed on first use)."""
     device = torch.device(device)
     g = _generators.get(device)
     if g is None:
@@ -95,14 +98,20 @@ def dropout_generator(device) -> torch.Generator:
     return g
 
 
-def dropout(x, p=0.5, training=True):
+dropout_generator = generator
+
+
+def dropout(x, p=0.5, training=True, axes=()):
     """reference src/operator/nn/dropout.cc: keep each value with
     probability 1 - p and scale it by 1 / (1 - p). The mask draws from
-    :func:`dropout_generator` of x's device."""
+    :func:`generator` of x's device; along ``axes`` one draw is shared
+    (the mask has size 1 there)."""
     if not training or p <= 0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=dropout_generator(x.device),
+    shared = {a % x.dim() for a in axes}
+    shape = [1 if i in shared else s for i, s in enumerate(x.shape)]
+    mask = torch.rand(shape, generator=generator(x.device),
                       device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
@@ -161,6 +170,29 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     bshape = [1] * x.dim()
     bshape[axis] = x.shape[axis]
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """RMSNorm (``mxnet_tpu/ops/nn.py:600``; no reference counterpart).
+
+    Last-axis rows of width <= 8192 with a 1-D gamma of that width go
+    through the K2r kernel's wrapper
+    (:func:`~.kernels.layer_norm.fused_rms_norm`: the CUDA kernel for CUDA
+    tensors, its plain version for CPU ones); other axes and widths, and
+    :class:`no_kernels` scopes, take the reference's jnp arithmetic,
+    ``x * rsqrt(mean(x²) + eps).astype(x.dtype) * gamma``. Nothing is
+    caught: a kernel that refuses its inputs raises."""
+    ax = axis if axis >= 0 else x.dim() + axis
+    d = x.shape[-1]
+    if (ax == x.dim() - 1 and d <= 8192 and gamma.dim() == 1
+            and gamma.shape[0] == d and kernels_enabled()):
+        from .kernels.layer_norm import fused_rms_norm
+
+        shp = x.shape
+        return fused_rms_norm(x.reshape(-1, d), gamma,
+                              float(eps))[0].reshape(shp)
+    ms = torch.mean(torch.square(x.float()), dim=axis, keepdim=True)
+    return x * torch.rsqrt(ms + eps).to(x.dtype) * gamma
 
 
 # ---------------------------------------------------------------------------

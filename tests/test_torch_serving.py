@@ -226,8 +226,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of the port or chip_smoke.py names jax or mxnet_tpu; with
-    both blocked, the port imports, a tiny CPU engine serves, and the
-    same model takes a train step through the loss and the Trainer."""
+    both blocked, every module of the port imports, a tiny CPU engine
+    serves, the same model takes a train step through the loss and the
+    Trainer, and the front door (mx.np, a deferred RMSNorm/Dense stack,
+    rtc.TorchModule) runs."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -265,6 +267,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "autograd.backward(loss)\n"
         "tr.step(2)\n"
         "assert loss.shape == (2,) and torch.isfinite(loss).all()\n"
+        "import pkgutil, importlib\n"
+        "for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,"
+        " 'mxnet_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from mxnet_tpu_torch import np as mnp, rtc\n"
+        "from mxnet_tpu_torch.gluon import nn\n"
+        "ffn = nn.HybridSequential()\n"
+        "ffn.add(nn.RMSNorm(), nn.Dense(8, flatten=False))\n"
+        "ffn.initialize(device='cpu')\n"
+        "h = ffn(mnp.random.normal(size=(2, 3, 4), device='cpu'))\n"
+        "assert h.shape == (2, 3, 8)\n"
+        "k = rtc.TorchModule('def f(x):\\n    return x * 2\\n')\n"
+        "assert k.get_kernel('f').launch([h]).shape == h.shape\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
