@@ -24,7 +24,10 @@ Phases (each asserts; any failure exits non-zero before the result line):
    KV stores and pools) is checked against its plain version once. The
    training slice's kernels (K1 flash-attention forward, K1c dQ, K1d
    dK/dV, K3 logsumexp) are timed at the train step's shapes and checked
-   in their other cases (:func:`train_kernel_checks`). K2r (RMSNorm
+   in their other cases (:func:`train_kernel_checks`); K1c and K1d must
+   give bitwise-equal results on two runs, and their bound is that of
+   the tensor cores they run on (three TF32 passes in f32), with the
+   f32-FMA bound printed beside it. K2r (RMSNorm
    forward) and R (runtime-compiled user kernels) are checked at the
    front-door path's shapes (:func:`frontdoor_kernel_checks`).
 3. The main path: gpt_like at full width (vocab 32000, units 768, hidden
@@ -78,6 +81,9 @@ SEED = 0
 # published H100 SXM peaks: HBM bytes/s and f32 (non-tensor-core) FLOP/s
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+# dense tensor-core peaks: TF32 and bf16
+TF32_FLOP_S = 495e12
+BF16_FLOP_S = 989e12
 # spin cycles per second for torch.cuda._sleep: at or above the H100's
 # highest SM clock (1.98 GHz), so a spin lasts at least as long as asked
 SPIN_CYCLES_S = 2e9
@@ -97,10 +103,12 @@ KERNELS = {
     # one kernel for K1a (:70) and K1b (:144); gpt_like's path runs K1b
     "flash_attention_fwd": ("mxnet_tpu_torch/csrc/flash_attention.cu",
                             "mxnet_tpu/ops/pallas/flash_attention.py:144"),
-    "flash_attention_bwd_dq": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+    # K1c and K1d: tensor-core kernels (mma.sync, 3xTF32 for f32)
+    "flash_attention_bwd_dq": ("mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
                                "mxnet_tpu/ops/pallas/flash_attention.py:379"),
-    "flash_attention_bwd_dkv": ("mxnet_tpu_torch/csrc/flash_attention.cu",
-                                "mxnet_tpu/ops/pallas/flash_attention.py:432"),
+    "flash_attention_bwd_dkv": (
+        "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "mxnet_tpu/ops/pallas/flash_attention.py:432"),
     "cross_entropy_lse": ("mxnet_tpu_torch/csrc/cross_entropy.cu",
                           "mxnet_tpu/ops/pallas/cross_entropy.py:34"),
     "rms_norm_fwd": ("mxnet_tpu_torch/csrc/layer_norm.cu",
@@ -201,6 +209,85 @@ def time_ms(fn, n_inputs=1, iters=100, warmup=5):
 def bound_ms(nbytes, flops):
     b, f = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
     return 1e3 * max(b, f), ("bytes" if b >= f else "operations")
+
+
+def kernel_name(mangled):
+    """A template kernel's mangled name as name<T, DP>; others as they
+    are."""
+    import re
+
+    t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f|6__half)"
+                  r"Li(\d+)E", mangled)
+    if t is None:
+        return mangled
+    ty = {"f": "float", "13__nv_bfloat16": "bf16",
+          "6__half": "half"}[t.group(2)]
+    return f"{t.group(1)}<{ty}, {t.group(3)}>"
+
+
+def ptxas_summary(log):
+    """(kernel, registers line, spill line) for each kernel in an ``nvcc
+    -Xptxas -v`` log."""
+    import re
+
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            out.append((fn, line.split(":", 1)[1].strip(), spill))
+            fn, spill = None, ""
+    return out
+
+
+def sass_mma_counts(lib):
+    """``cuobjdump -sass`` of a built kernel library: the number of
+    tensor-core instructions (HMMA) in each kernel, by mangled name, or
+    None where the toolkit has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    exe = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def tc_bound_ms(nbytes, flops, dtype):
+    """The tensor-core bound of K1c and K1d: f32 operands take three TF32
+    passes (hi.hi + hi.lo + lo.hi) at 495 TFLOP/s, bf16 one pass at 989."""
+    passes, rate = (3, TF32_FLOP_S) if dtype == "float32" else (1,
+                                                                 BF16_FLOP_S)
+    b, f = nbytes / HBM_BYTES_S, passes * flops / rate
+    return 1e3 * max(b, f), ("bytes" if b >= f else "operations")
+
+
+def use_tc_bound(row, nbytes, flops, dtype):
+    """Make a K1c / K1d row's ``bound_ms`` and ``bound_by`` (those of the
+    kernels line) the tensor-core bound, the rate these kernels multiply
+    at, keep the f32-FMA bound beside it as ``fma_bound_ms``, and print
+    both with the roofline share against each."""
+    tms, tby = tc_bound_ms(nbytes, flops, dtype)
+    row["fma_bound_ms"], row["fma_bound_by"] = row["bound_ms"], row["bound_by"]
+    row["bound_ms"], row["bound_by"] = tms, tby
+    rate = ("3 TF32 passes at 495" if dtype == "float32"
+            else "1 bf16 pass at 989")
+    print(f"{row['name']} {row['case']}: bound_ms {tms:.6f} ({tby}, tensor "
+          f"cores, {rate} TFLOP/s; the kernels line's bound_ms, roofline "
+          f"share {tms / row['ms']:.3f}) f32-FMA bound "
+          f"{row['fma_bound_ms']:.6f} ({row['fma_bound_by']}, 67 TFLOP/s; "
+          f"roofline share {row['fma_bound_ms'] / row['ms']:.3f})",
+          flush=True)
 
 
 def measure(name, case, err, tol, kernel, plain, library, nbytes, flops,
@@ -641,9 +728,12 @@ def train_kernel_checks(torch, dev):
     """Phase 2, the training slice's kernels. K1 forward, K1c and K1d at
     the train step's (8, 12, 1024, 64) causal f32 and K3 at its
     (8184, 32000) f32 logits against their plain versions, timed, with
-    SDPA and torch.logsumexp as library yardsticks; then the other K1
-    cases (non-causal, ragged L 1000, Lq 256 < Lk 1024, bf16) and K3 in
-    bf16 once each. Returns (timed rows, other cases, extra timings)."""
+    SDPA and torch.logsumexp as library yardsticks, K1c and K1d also
+    against their tensor-core bound and run twice for bitwise-equal
+    results; then the other K1 cases (non-causal, ragged L 1000, Lq 256 <
+    Lk 1024, bf16 (K1c and K1d timed there too), D 128 and D 36 in f32
+    and bf16) and K3 in bf16 once each. Returns (timed rows, other cases,
+    extra timings)."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import nn as tnn
@@ -707,8 +797,20 @@ def train_kernel_checks(torch, dev):
                                           retain_graph=True), iters=20)[0]
     del o
     extra["k1c_k1d_ms"] = rows[1]["ms"] + rows[2]["ms"]
-    for row in rows[1:]:
+    for row, part in zip(rows[1:], ("dq", "dkv")):
         row["library_ms"] = extra["sdpa_bwd_ms"]   # one call for both
+        use_tc_bound(row, *cost[part], "float32")
+    # no atomics: two runs of K1c and K1d give the same bits
+    with torch.no_grad():
+        runs = [kfa.flash_backward_dq(q, k, v, out, lse, go, True)
+                + kfa.flash_backward_dkv(q, k, v, go, lse, delta, True)
+                for _ in range(2)]
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    print(f"K1c, K1d twice at {shape}: dq, delta, dk, dv bitwise equal "
+          f"{same}", flush=True)
+    check(all(same), f"K1c / K1d not deterministic: {same}")
+    extra["bwd_bitwise_repeatable"] = all(same)
+    del runs
     print(f"attention fwd + bwd at {shape}: K1 forward + K1c + K1d "
           f"{extra['k1_fwd_dq_dkv_ms']:.5f} ms, SDPA forward + backward "
           f"{extra['sdpa_fwd_bwd_ms']:.5f} ms; K1c + K1d "
@@ -717,11 +819,18 @@ def train_kernel_checks(torch, dev):
           f"{extra['sdpa_bwd_ms']:.5f} ms", flush=True)
     del q, k, v, go, out, lse, dq, delta, qs, ks, vs
 
+    # D 128 reaches the kernels' second tile width, D 36 the zero-padded
+    # columns and, in bf16 (72-byte rows), the unaligned staging
     for case, (b, h, lq, lk, d, causal, dt) in {
             "non-causal": (2, 12, 1024, 1024, 64, False, torch.float32),
             "ragged L 1000": (2, 12, 1000, 1000, 64, True, torch.float32),
             "Lq 256 < Lk 1024": (2, 12, 256, 1024, 64, True, torch.float32),
-            "bf16": (8, 12, 1024, 1024, 64, True, torch.bfloat16)}.items():
+            "bf16": (8, 12, 1024, 1024, 64, True, torch.bfloat16),
+            "D 128": (2, 12, 1024, 1024, 128, True, torch.float32),
+            "D 128 bf16": (2, 12, 1024, 1024, 128, True, torch.bfloat16),
+            "D 36": (2, 12, 1000, 1000, 36, True, torch.float32),
+            "D 36 bf16": (2, 12, 1000, 1000, 36, True,
+                          torch.bfloat16)}.items():
         q, go = randn(b, h, lq, d, dtype=dt), randn(b, h, lq, d, dtype=dt)
         k, v = randn(b, h, lk, d, dtype=dt), randn(b, h, lk, d, dtype=dt)
         res = flash_case(torch, kfa, q, k, v, go, causal)
@@ -733,6 +842,8 @@ def train_kernel_checks(torch, dev):
             check(err <= limit, f"flash {part} {case}: {err} > {limit}")
             cases.append({"name": "flash_attention", "case": case,
                           "part": part, "max_abs_err": err, "limit": limit})
+        if case == "bf16":
+            extra["bf16"] = bf16_backward_times(torch, kfa, q, k, v, go)
         del q, k, v, go
 
     # K3: the loss's (8 * 1023, 32000) logits, about 5% of labels -1
@@ -766,6 +877,36 @@ def train_kernel_checks(torch, dev):
     cases.append({"name": "cross_entropy_lse", "case": "bf16",
                   "max_abs_err": err, "limit": 1e-5})
     return rows, cases, extra
+
+
+def bf16_backward_times(torch, kfa, q, k, v, go):
+    """K1c and K1d on the bf16 case at the train step's shape, timed
+    against their tensor-core bounds and SDPA's bf16 backward (PyTorch
+    picks the backend)."""
+    import torch.nn.functional as F
+
+    b, h, l, d = q.shape
+    cost = attention_cost(b, h, l, l, d, True, 2)
+    with torch.no_grad():
+        out, lse = kfa.flash_forward(q, k, v, True)
+        _, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, True)
+        dq_ms = time_ms(lambda i: kfa.flash_backward_dq(
+            q, k, v, out, lse, go, True))[0]
+        dkv_ms = time_ms(lambda i: kfa.flash_backward_dkv(
+            q, k, v, go, lse, delta, True))[0]
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    sdpa_ms = time_ms(lambda i: torch.autograd.grad(
+        o, (qs, ks, vs), go, retain_graph=True), iters=20)[0]
+    res = {"dq_ms": dq_ms, "dkv_ms": dkv_ms, "sdpa_bwd_ms": sdpa_ms,
+           "dq_tc_bound_ms": tc_bound_ms(*cost["dq"], "bfloat16")[0],
+           "dkv_tc_bound_ms": tc_bound_ms(*cost["dkv"], "bfloat16")[0]}
+    print(f"bf16 backward at B{b} H{h} L{l} D{d} causal: K1c "
+          f"{dq_ms:.5f} ms (tensor-core bound {res['dq_tc_bound_ms']:.6f}), "
+          f"K1d {dkv_ms:.5f} ms (bound {res['dkv_tc_bound_ms']:.6f}), "
+          f"together {dq_ms + dkv_ms:.5f}; SDPA bf16 backward {sdpa_ms:.5f} "
+          f"ms", flush=True)
+    return res
 
 
 def rms_tol(dtype, ref):
@@ -1405,11 +1546,25 @@ def main(argv):
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"built {built} in {build_s:.2f} s", flush=True)
-    for name in built:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+    results["ptxas"] = {}
+    for name in _build.KERNEL_SOURCES:     # cached libraries keep their log
+        results["ptxas"][name] = ptxas_summary(_build.build_log(name))
+        for fn, regs, spill in results["ptxas"][name]:
+            print(f"  ptxas[{name}] {fn}: {regs}; {spill}")
     results["build_s"] = build_s
+    # K1c and K1d must multiply on the tensor cores: HMMA in every
+    # instantiation of both kernels
+    mma = sass_mma_counts(_build._lib_path("flash_attention_bwd"))
+    if mma is None:
+        print("cuobjdump not found: SASS of K1c / K1d not inspected")
+    else:
+        bwd = {kernel_name(n): c for n, c in mma.items()
+               if "flash_bwd_" in n}
+        print(f"cuobjdump -sass flash_attention_bwd: HMMA per kernel {bwd}",
+              flush=True)
+        check(len(bwd) == 8 and all(bwd.values()),
+              f"K1c / K1d instantiations without HMMA: {bwd}")
+        results["bwd_sass_hmma"] = bwd
 
     # -- phase 2: kernels against their plain versions ----------------------
     rows = kernel_checks(torch, dev)

@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parents[2]
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 KERNEL_SOURCES = ("layer_norm", "paged_attention", "fused_decode",
-                  "flash_attention", "cross_entropy")
+                  "flash_attention", "flash_attention_bwd", "cross_entropy")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -68,6 +68,8 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "mxt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    },
+    "flash_attention_bwd": {
         "mxt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
         "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     },
@@ -129,6 +131,10 @@ def _finish(name: str, started) -> None:
         tmp.unlink(missing_ok=True)
         raise FatalError(f"nvcc failed on csrc/{name}.cu "
                          f"(exit {proc.returncode}):\n{out}")
+    # the log first, then the library: a library on disk has its log
+    log_tmp = tmp.with_suffix(".log.tmp")
+    log_tmp.write_text(out)
+    os.replace(log_tmp, final.with_suffix(".log"))
     os.replace(tmp, final)      # publish by rename: readers never see half
 
 
@@ -171,8 +177,13 @@ def load(name: str) -> ctypes.CDLL:
 
 def build_log(name: str) -> str:
     """nvcc's output (register and shared-memory use per kernel from
-    ``-Xptxas -v``) for a library compiled by this process."""
-    return _logs.get(name, "")
+    ``-Xptxas -v``) for the named library: from this process's build,
+    else from the log kept beside a cached library ("" when there is
+    none)."""
+    if name in _logs:
+        return _logs[name]
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def check(err: int, what: str) -> None:

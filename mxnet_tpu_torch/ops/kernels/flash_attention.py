@@ -1,22 +1,27 @@
 """K1 — flash attention forward and its FA2 backward (counterpart of
 ``mxnet_tpu/ops/pallas/flash_attention.py``).
 
-Replaces four TPU kernels with three hand-written CUDA kernels in
-``csrc/flash_attention.cu``:
+Replaces four TPU kernels with three hand-written CUDA kernels:
 
-- :func:`flash_forward` — one kernel for ``_flash_kernel`` (K1a, ``:70``)
-  and ``_flash_kernel_resident`` (K1b, ``:144``), both reached through
-  ``_flash_forward`` (``:264``). The TPU bodies compute one function and
-  differ only in how K/V reach VMEM; on Hopper a loop inside the block
-  stages K/V tiles through shared memory at any length.
-- :func:`flash_backward_dq` — ``_bwd_dq_kernel`` (K1c, ``:379``): dQ and
-  D = rowsum(dO * O), which it also writes out.
-- :func:`flash_backward_dkv` — ``_bwd_dkv_kernel`` (K1d, ``:432``): dK
-  and dV, reading the D that K1c wrote (K1d recomputed it per block).
+- :func:`flash_forward` — one kernel in ``csrc/flash_attention.cu`` for
+  ``_flash_kernel`` (K1a, ``:70``) and ``_flash_kernel_resident`` (K1b,
+  ``:144``), both reached through ``_flash_forward`` (``:264``). The TPU
+  bodies compute one function and differ only in how K/V reach VMEM; on
+  Hopper a loop inside the block stages K/V tiles through shared memory
+  at any length. It runs f32 on the FMA units (no TF32).
+- :func:`flash_backward_dq` — ``_bwd_dq_kernel`` (K1c, ``:379``), in
+  ``csrc/flash_attention_bwd.cu``: dQ and D = rowsum(dO * O), which it
+  also writes out.
+- :func:`flash_backward_dkv` — ``_bwd_dkv_kernel`` (K1d, ``:432``), in
+  the same source: dK and dV, reading the D that K1c wrote (K1d
+  recomputed it per block).
 
-Bound on the H100 at the main path's (8, 12, 1024, 64) causal f32:
-operations, about 0.19 ms forward, 0.29 ms dQ and 0.39 ms dK/dV at
-67 TFLOP/s f32 (the kernels run f32 on the FMA units, no TF32).
+The two backward kernels multiply on the tensor cores (``mma.sync``):
+bf16 operands in one pass, f32 operands split into a TF32 high and low
+part and multiplied in three passes (hi.hi + hi.lo + lo.hi), which keeps
+about f32 accuracy. Bound on the H100 at the main path's (8, 12, 1024,
+64) causal f32: operations, about 0.19 ms forward at 67 TFLOP/s f32, and
+0.117 ms dQ and 0.156 ms dK/dV at three TF32 passes of 495 TFLOP/s.
 
 :func:`flash_attention` is the differentiable entry point, a
 ``torch.autograd.Function`` as the reference's is a ``jax.custom_vjp``:
@@ -184,7 +189,7 @@ def flash_backward_dq(q, k, v, out, lse, g, causal=False, sm_scale=None):
     _build.require(lse.dtype == torch.float32 and lse.is_contiguous()
                    and tuple(lse.shape) == (b, h, lq), what,
                    "lse must be (B, H, Lq) float32")
-    lib = _build.load("flash_attention")
+    lib = _build.load("flash_attention_bwd")
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -214,7 +219,7 @@ def flash_backward_dkv(q, k, v, g, lse, delta, causal=False,
                        and tuple(t.shape) == (b, h, lq)
                        for t in (lse, delta)), what,
                    "lse and delta must be (B, H, Lq) float32")
-    lib = _build.load("flash_attention")
+    lib = _build.load("flash_attention_bwd")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):

@@ -11,7 +11,11 @@ The CUDA kernels themselves run only on the card, where
 ``chip_smoke.py`` holds them against these same plain versions.
 """
 import importlib
+import re
+import subprocess
+import sys
 from contextlib import nullcontext
+from pathlib import Path
 
 import numpy as onp
 import pytest
@@ -26,6 +30,7 @@ from mxnet_tpu.ops.pallas import layer_norm as jln
 from mxnet_tpu_torch import autograd
 from mxnet_tpu_torch.base import FatalError
 from mxnet_tpu_torch.ops import nn as tnn
+from mxnet_tpu_torch.ops.kernels import _build
 from mxnet_tpu_torch.ops.kernels import cross_entropy as tce
 from mxnet_tpu_torch.ops.kernels import flash_attention as tfa
 from mxnet_tpu_torch.ops.kernels import fused_decode as tfused
@@ -127,6 +132,59 @@ def test_flash_backward_matches_pallas(lq, lk, causal):
         onp.testing.assert_allclose(got.numpy(), onp.asarray(w),
                                     rtol=F32_TOL, atol=F32_TOL)
         onp.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def _tf32(x, mode="nearest"):
+    """f32 cut to TF32's 10 mantissa bits (finite values only): round to
+    nearest even on the low 13 bits, or truncate them."""
+    b = x.detach().numpy().astype(onp.float32).view(onp.uint32)
+    b = b.astype(onp.uint64)
+    if mode == "nearest":
+        b = b + 0x0FFF + ((b >> 13) & 1)
+    b = b & 0xFFFFE000
+    return torch.from_numpy(b.astype(onp.uint32).view(onp.float32))
+
+
+def _mm_tf32(a, b, passes, mode="nearest"):
+    """a @ b with TF32 operands: one pass (tf32(a) @ tf32(b)), or three
+    (hi.hi + hi.lo + lo.hi with hi = tf32(x), lo = tf32(x - hi)), each
+    product summed in f32 as the tensor cores sum."""
+    ah, bh = _tf32(a, mode), _tf32(b, mode)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah, mode), _tf32(b - bh, mode)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("mode", ["nearest", "truncate"])
+def test_flash_backward_3xtf32_split_holds_f32_tolerance(mode):
+    """Why K1c and K1d split f32 operands into three TF32 passes: the FA2
+    backward with every product (S = QK^T, dP = dO V^T, dQ = dS K,
+    dK = dS^T Q, dV = P^T dO) done as hi.hi + hi.lo + lo.hi stays within
+    the card's f32 tolerance (chip_smoke's FLASH_TOL, 1e-5 of the largest
+    magnitude) of flash_backward_plain, and one TF32 pass does not. With
+    TF32 rounded to nearest even, and truncated as the kernels cut hi and
+    the tensor core reads lo."""
+    q, k, v = (_t(a) for a in _qkv(21, 1, 2, 256, 256, 64))
+    g = _t(onp.random.RandomState(22).randn(1, 2, 256, 64))
+    scale = 64 ** -0.5
+    out, lse = tfa.flash_forward_plain(q, k, v, True, scale)
+    want = tfa.flash_backward_plain(q, k, v, out, lse, g, True, scale)
+    live = torch.ones(256, 256, dtype=torch.bool).tril()
+    delta = (g * out).sum(-1)
+    errs = {}
+    for passes in (3, 1):
+        def mm(a, b):
+            return _mm_tf32(a, b, passes, mode)
+        s = mm(q, k.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[..., None]).masked_fill(~live, 0.0)
+        ds = p * (mm(g, v.transpose(-1, -2)) - delta[..., None]) * scale
+        got = (mm(ds, k), mm(ds.transpose(-1, -2), q),
+               mm(p.transpose(-1, -2), g))
+        errs[passes] = [((a - b).abs().max() / b.abs().max()).item()
+                        for a, b in zip(got, want)]
+    assert max(errs[3]) <= 1e-5, errs
+    assert min(errs[1]) > 1e-5, errs
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -297,3 +355,78 @@ def test_inference_wrappers_refuse_grad_mode():
                 call()
         with torch.no_grad():
             call()
+
+
+def test_kernel_sources_match_their_ctypes_signatures():
+    """Every C entry point of csrc/*.cu has its ctypes argtypes, with as
+    many arguments, under the source that defines it; every listed source
+    exists; and each wrapper calls an entry point of the library it loads
+    (K1c and K1d moved to their own source, which the card alone builds)."""
+    pkg = Path(_build.__file__).resolve().parents[2]
+    defined = {}
+    for src in sorted((pkg / "csrc").glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (mxt_\w+)\(([^)]*)\)',
+                                     src.read_text()):
+            defined[name] = (src.stem, len(args.split(",")))
+    assert set(_build.KERNEL_SOURCES) == set(_build._SIGNATURES)
+    assert {stem for stem, _ in defined.values()} == set(
+        _build.KERNEL_SOURCES)
+    listed = {fn: (stem, len(argtypes))
+              for stem, fns in _build._SIGNATURES.items()
+              for fn, argtypes in fns.items()}
+    assert listed == defined
+    for mod in sorted((pkg / "ops" / "kernels").glob("*.py")):
+        text = mod.read_text()
+        for lib, body in re.findall(
+                r'lib = _build\.load\("(\w+)"\)(.*?)_build\.check',
+                text, re.S):
+            for fn in re.findall(r"lib\.(mxt_\w+)\(", body):
+                assert defined[fn][0] == lib, (mod.name, fn, lib)
+
+
+def test_build_log_is_kept_beside_the_library(monkeypatch, tmp_path):
+    """nvcc's log (registers and spills from ``-Xptxas -v``) is written
+    beside the library it built, so a later process that finds the
+    library cached still reads the log."""
+    monkeypatch.setattr(_build, "_OUT", tmp_path)
+    monkeypatch.setattr(_build, "_logs", {})
+    name = "flash_attention_bwd"
+    final = _build._lib_path(name)
+    tmp = final.with_suffix(".1.tmp")
+    tmp.write_bytes(b"library")
+    log = "ptxas info    : Used 168 registers\n"
+    proc = subprocess.Popen([sys.executable, "-c",
+                             f"print({log!r}, end='')"],
+                            stdout=subprocess.PIPE, text=True)
+    _build._finish(name, (proc, tmp, final))
+    assert final.read_bytes() == b"library"
+    assert final.with_suffix(".log").read_text() == log
+    _build._logs.clear()                  # a new process, library cached
+    assert _build.build_log(name) == log
+    assert _build.build_log("cross_entropy") == ""
+
+
+@pytest.mark.parametrize("dtype,passes,rate", [
+    ("float32", 3, 495e12), ("bfloat16", 1, 989e12)])
+def test_chip_smoke_bounds_k1c_k1d_at_the_tensor_core_rate(dtype, passes,
+                                                           rate):
+    """The kernels line's ``bound_ms`` of K1c and K1d is the bound of the
+    tensor cores they run on (f32: three TF32 passes); the f32-FMA bound
+    stays beside it as ``fma_bound_ms``."""
+    import chip_smoke
+
+    itemsize = 4 if dtype == "float32" else 2
+    cost = chip_smoke.attention_cost(8, 12, 1024, 1024, 64, True, itemsize)
+    for part in ("dq", "dkv"):
+        nbytes, flops = cost[part]
+        fma_ms, fma_by = chip_smoke.bound_ms(nbytes, flops)
+        row = {"name": part, "case": dtype, "ms": 1.0, "bound_ms": fma_ms,
+               "bound_by": fma_by}
+        chip_smoke.use_tc_bound(row, nbytes, flops, dtype)
+        by_bytes, by_ops = nbytes / 3.35e12, passes * flops / rate
+        assert row["bound_ms"] == pytest.approx(1e3 * max(by_bytes, by_ops),
+                                                rel=1e-12)
+        assert row["bound_by"] == ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+        assert (row["fma_bound_ms"], row["fma_bound_by"]) == (fma_ms, fma_by)
+        assert row["bound_ms"] < row["fma_bound_ms"]
