@@ -6,6 +6,10 @@ NVIDIA H100.
     python3 chip_smoke.py --profile    # also torch.profiler tables of one
                                        # decode step and one train step,
                                        # by kernel
+    python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result)
+    python3 chip_smoke.py --trials     # also, after phase 1, trial builds
+                                       # of K4's span and K1 forward's
+                                       # tiling timed against each other
 
 Phases (each asserts; any failure exits non-zero before the result line):
 
@@ -24,10 +28,14 @@ Phases (each asserts; any failure exits non-zero before the result line):
    KV stores and pools) is checked against its plain version once. The
    training slice's kernels (K1 flash-attention forward, K1c dQ, K1d
    dK/dV, K3 logsumexp) are timed at the train step's shapes and checked
-   in their other cases (:func:`train_kernel_checks`); K1c and K1d must
-   give bitwise-equal results on two runs, and their bound is that of
-   the tensor cores they run on (three TF32 passes in f32), with the
-   f32-FMA bound printed beside it. K2r (RMSNorm
+   in their other cases (:func:`train_kernel_checks`); the three
+   attention kernels must give bitwise-equal results on two runs, K1
+   forward must beat SDPA's forward, and their bound is that of the
+   tensor cores they run on (three TF32 passes in f32), with the f32-FMA
+   bound printed beside it; cuobjdump must find HMMA in every
+   instantiation. K4 is timed at phase 3's mid-decode lengths too, must
+   beat its plain version, and is held at the edges of its split
+   (:func:`paged_edge_checks`). K2r (RMSNorm
    forward) and R (runtime-compiled user kernels) are checked at the
    front-door path's shapes (:func:`frontdoor_kernel_checks`).
 3. The main path: gpt_like at full width (vocab 32000, units 768, hidden
@@ -264,8 +272,9 @@ def sass_mma_counts(lib):
 
 
 def tc_bound_ms(nbytes, flops, dtype):
-    """The tensor-core bound of K1c and K1d: f32 operands take three TF32
-    passes (hi.hi + hi.lo + lo.hi) at 495 TFLOP/s, bf16 one pass at 989."""
+    """The tensor-core bound of the attention kernels (K1 forward, K1c,
+    K1d): f32 operands take three TF32 passes (hi.hi + hi.lo + lo.hi) at
+    495 TFLOP/s, bf16 one pass at 989."""
     passes, rate = (3, TF32_FLOP_S) if dtype == "float32" else (1,
                                                                  BF16_FLOP_S)
     b, f = nbytes / HBM_BYTES_S, passes * flops / rate
@@ -273,10 +282,11 @@ def tc_bound_ms(nbytes, flops, dtype):
 
 
 def use_tc_bound(row, nbytes, flops, dtype):
-    """Make a K1c / K1d row's ``bound_ms`` and ``bound_by`` (those of the
-    kernels line) the tensor-core bound, the rate these kernels multiply
-    at, keep the f32-FMA bound beside it as ``fma_bound_ms``, and print
-    both with the roofline share against each."""
+    """Make an attention kernel's row's ``bound_ms`` and ``bound_by``
+    (those of the kernels line) the tensor-core bound, the rate these
+    kernels multiply at, keep the f32-FMA bound beside it as
+    ``fma_bound_ms``, and print both with the roofline share against
+    each."""
     tms, tby = tc_bound_ms(nbytes, flops, dtype)
     row["fma_bound_ms"], row["fma_bound_by"] = row["bound_ms"], row["bound_by"]
     row["bound_ms"], row["bound_by"] = tms, tby
@@ -461,44 +471,57 @@ def kernel_checks(torch, dev):
             lambda i: F.layer_norm(x, (u,), gam, bet, 1e-5),
             4 * (2 * n * u + 2 * u + 2 * n), 8 * n * u))
 
-    # K4: 8 lanes, lengths spread over 1..2048 ----------------------------
+    # K4: 8 lanes, lengths spread over 1..2048, and the decode step's
+    # mid-decode lengths (the served batch's prompts + 16) ---------------
     r, mb = 8, 128
     nb = r * mb + 1
-    lengths = torch.tensor([1, 17, 256, 511, 1000, 1500, 2047, 2048],
-                           dtype=torch.int32, device=dev)
     perm = torch.randperm(r * mb, generator=g, device=dev)
     table = perm.reshape(r, mb).to(torch.int32).contiguous()
     q = randn(r, heads, d)
-    live = int(lengths.sum().item())
-    blocks = int(((lengths + bs - 1) // bs).sum().item())
-    for kind in ("int8", "float32"):
-        n_sets = 4 if kind == "int8" else 2     # > 50 MB of pools cycled
-        pools = []
-        for _ in range(n_sets):
-            kp, vp = randn(nb, heads, bs, d), randn(nb, heads, bs, d)
-            if kind == "int8":
-                kp, vp = tnn.kv_cache_quantize(kp), tnn.kv_cache_quantize(vp)
-            pools.append((kp.contiguous(), vp.contiguous()))
-        kp, vp = pools[0]
-        out = kpa.paged_attention_kernel(q, kp, vp, table, lengths)
-        ref = kpa.paged_attention_plain(q, kp, vp, table, lengths)
-        check(torch.isfinite(out).all().item(),
-              f"paged_attention {kind}: non-finite output")
-        row_bytes = kp.shape[-1] * kp.element_size()
-        # live K and V rows once, q, out, the live table entries, lengths
-        nbytes = (2 * live * heads * row_bytes + 2 * r * heads * d * 4
-                  + 4 * blocks + 4 * r)
-        rows.append(measure(
-            "paged_attention",
-            f"R{r} H{heads} D{d} bs{bs} MB{mb} {kind} pools, lengths "
-            f"{lengths.tolist()}", (out - ref).abs().max().item(),
-            1e-4,   # online softmax over 128-position chunks vs softmax
-            lambda i: kpa.paged_attention_kernel(
-                q, pools[i][0], pools[i][1], table, lengths),
-            lambda i: kpa.paged_attention_plain(
-                q, pools[i][0], pools[i][1], table, lengths),
-            None, nbytes, 4 * live * heads * d, n_inputs=n_sets))
-        del pools
+    for name, lens in (("lengths", [1, 17, 256, 511, 1000, 1500, 2047, 2048]),
+                       ("mid-decode lengths", mid_decode_lengths())):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = int(lengths.sum().item())
+        blocks = int(((lengths + bs - 1) // bs).sum().item())
+        for kind in ("int8", "float32"):
+            n_sets = 4 if kind == "int8" else 2     # > 50 MB of pools cycled
+            pools = []
+            for _ in range(n_sets):
+                kp, vp = randn(nb, heads, bs, d), randn(nb, heads, bs, d)
+                if kind == "int8":
+                    kp = tnn.kv_cache_quantize(kp)
+                    vp = tnn.kv_cache_quantize(vp)
+                pools.append((kp.contiguous(), vp.contiguous()))
+            kp, vp = pools[0]
+            out = kpa.paged_attention_kernel(q, kp, vp, table, lengths)
+            ref = kpa.paged_attention_plain(q, kp, vp, table, lengths)
+            check(torch.isfinite(out).all().item(),
+                  f"paged_attention {kind}: non-finite output")
+            # no atomics on the values: a second run gives the same bits
+            again = kpa.paged_attention_kernel(q, kp, vp, table, lengths)
+            check(torch.equal(out, again),
+                  f"paged_attention {kind} {name}: two runs differ")
+            row_bytes = kp.shape[-1] * kp.element_size()
+            # live K and V rows once, q, out, the live table entries,
+            # lengths
+            nbytes = (2 * live * heads * row_bytes + 2 * r * heads * d * 4
+                      + 4 * blocks + 4 * r)
+            rows.append(measure(
+                "paged_attention",
+                f"R{r} H{heads} D{d} bs{bs} MB{mb} {kind} pools, {name} "
+                f"{lens}", (out - ref).abs().max().item(),
+                # each span's exact softmax merged with the others against
+                # one softmax over all positions: f32 sums in another order
+                1e-4,
+                lambda i: kpa.paged_attention_kernel(
+                    q, pools[i][0], pools[i][1], table, lengths),
+                lambda i: kpa.paged_attention_plain(
+                    q, pools[i][0], pools[i][1], table, lengths),
+                None, nbytes, 4 * live * heads * d, n_inputs=n_sets))
+            check(rows[-1]["ms"] < rows[-1]["plain_ms"],
+                  f"paged_attention {kind} {name}: kernel {rows[-1]['ms']} "
+                  f"ms not under its plain version {rows[-1]['plain_ms']}")
+            del pools
 
     # K5a / K5b: 8 decode tokens, one weight set per layer ----------------
     n, n_sets = 8, 12
@@ -537,6 +560,101 @@ def kernel_checks(torch, dev):
         lambda i: kfd.out_project_plain(a, wo[i], bo[i]),
         lambda i: F.linear(a, wo[i], bo[i]),
         4 * (u * u + u + 2 * n * u), 2 * n * u * u, n_inputs=n_sets))
+    return rows
+
+
+def mid_decode_lengths():
+    """The served batch's lengths halfway through its 32 new tokens (the
+    decode step of phases 4 and 5): phase 3 draws the 8 prompt lengths
+    first from this generator."""
+    prompt_lens = np.random.default_rng(SEED + 1).integers(16, 1025, size=8)
+    return [int(n) + NEW_TOKENS // 2 for n in prompt_lens]
+
+
+def paged_edge_checks(torch, dev):
+    """K4 once at the edges of its split, against its plain version at
+    1e-4, each run twice for bitwise-equal results: lengths span - 1,
+    span and span + 1 positions (one span, and a second span of one
+    position), MB * bs, one above MB * bs (capped, as on the TPU), and a
+    batch of one lane; int8 and f32 pools. Then once on each path of the
+    kernel that the main path's shapes do not take. Returns one row per
+    case."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 8)
+    heads, d, bs, mb = 12, 64, 16, 128
+    rows = []
+    span_blocks = kpa._span(_build.load("paged_attention"))
+    span = span_blocks * bs
+    r = 6
+    lens_all = [span - 1, span, span + 1, mb * bs, mb * bs + 1, 1]
+    table = (torch.randperm(r * mb, generator=g, device=dev)
+             .reshape(r, mb).to(torch.int32).contiguous())
+    q = torch.randn(r, heads, d, generator=g, device=dev)
+    for kind in ("int8", "float32"):
+        kp, vp = (torch.randn(r * mb + 1, heads, bs, d, generator=g,
+                              device=dev) for _ in range(2))
+        if kind == "int8":
+            kp, vp = tnn.kv_cache_quantize(kp), tnn.kv_cache_quantize(vp)
+        for case, (qq, tt, ll) in (
+                (f"lengths {lens_all}", (q, table, lens_all)),
+                ("one lane, length 1000", (q[:1], table[:1], [1000]))):
+            lengths = torch.tensor(ll, dtype=torch.int32, device=dev)
+            out = kpa.paged_attention_kernel(qq, kp, vp, tt, lengths)
+            again = kpa.paged_attention_kernel(qq, kp, vp, tt, lengths)
+            ref = kpa.paged_attention_plain(qq, kp, vp, tt, lengths)
+            err = (out - ref).abs().max().item()
+            print(f"paged_attention {kind} pools, span {span} positions, "
+                  f"{case}: max_abs_err {err:.3e} (tol 1e-4), two runs "
+                  f"bitwise equal {torch.equal(out, again)}", flush=True)
+            check(torch.isfinite(out).all().item() and err <= 1e-4,
+                  f"paged_attention {kind} {case}: {err}")
+            check(torch.equal(out, again),
+                  f"paged_attention {kind} {case}: two runs differ")
+            rows.append({"name": "paged_attention", "case": f"{kind} pools, "
+                         f"span {span}, {case}", "max_abs_err": err,
+                         "tol": 1e-4})
+    # the kernel's other paths: slices staged by plain loads (no multiple
+    # of 16 bytes), 4 and 8 features a lane (D 128, 256), one slice per
+    # ring stage, over 48 KB of shared memory (64 KB slices); tolerances
+    # as variant_checks' (the plain version rounds weights to the pool's
+    # dtype)
+    f32, bf16, f16, i8 = (torch.float32, torch.bfloat16, torch.float16,
+                          torch.int8)
+    for q_dt, p_dt, d, bs, tol in ((f32, i8, 64, 1, 1e-4),
+                                   (bf16, i8, 128, 8, 3e-2),
+                                   (f32, f32, 256, 16, 1e-4),
+                                   (f32, f16, 33, 3, 1e-2),
+                                   (bf16, bf16, 256, 128, 3e-2)):
+        r, mb = 3, max(2, 1024 // bs)
+        lens = [1, span_blocks * bs + 1, mb * bs]
+        table = (torch.randperm(r * mb, generator=g, device=dev)
+                 .reshape(r, mb).to(torch.int32).contiguous())
+        q = torch.randn(r, heads, d, generator=g, device=dev).to(q_dt)
+        kp, vp = (torch.randn(r * mb + 1, heads, bs, d, generator=g,
+                              device=dev) for _ in range(2))
+        if p_dt == i8:
+            kp, vp = tnn.kv_cache_quantize(kp), tnn.kv_cache_quantize(vp)
+        else:
+            kp, vp = kp.to(p_dt), vp.to(p_dt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = kpa.paged_attention_kernel(q, kp, vp, table, lengths)
+        again = kpa.paged_attention_kernel(q, kp, vp, table, lengths)
+        ref = kpa.paged_attention_plain(q, kp, vp, table, lengths)
+        err = (out.float() - ref.float()).abs().max().item()
+        case = (f"q {str(q_dt)[6:]} pools {str(p_dt)[6:]} D{d} bs{bs} MB{mb} "
+                f"lengths {lens}")
+        print(f"paged_attention {case}: max_abs_err {err:.3e} (tol {tol:g}), "
+              f"two runs bitwise equal {torch.equal(out, again)}", flush=True)
+        check(out.dtype == ref.dtype and torch.isfinite(out).all().item()
+              and err <= tol, f"paged_attention {case}: {err}")
+        check(torch.equal(out, again), f"paged_attention {case}: two runs "
+              "differ")
+        rows.append({"name": "paged_attention", "case": case,
+                     "max_abs_err": err, "tol": tol})
     return rows
 
 
@@ -728,12 +846,13 @@ def train_kernel_checks(torch, dev):
     """Phase 2, the training slice's kernels. K1 forward, K1c and K1d at
     the train step's (8, 12, 1024, 64) causal f32 and K3 at its
     (8184, 32000) f32 logits against their plain versions, timed, with
-    SDPA and torch.logsumexp as library yardsticks, K1c and K1d also
-    against their tensor-core bound and run twice for bitwise-equal
-    results; then the other K1 cases (non-causal, ragged L 1000, Lq 256 <
-    Lk 1024, bf16 (K1c and K1d timed there too), D 128 and D 36 in f32
-    and bf16) and K3 in bf16 once each. Returns (timed rows, other cases,
-    extra timings)."""
+    SDPA and torch.logsumexp as library yardsticks, the three attention
+    kernels also against their tensor-core bound and run twice for
+    bitwise-equal results, and K1 forward under SDPA's forward; then the
+    other K1 cases (non-causal, ragged L 1000, Lq 256 < Lk 1024, bf16
+    (all three timed there too, beside SDPA in bf16), D 128 and D 36 in
+    f32 and bf16) and K3 in bf16 once each. Returns (timed rows, other
+    cases, extra timings)."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import nn as tnn
@@ -799,17 +918,23 @@ def train_kernel_checks(torch, dev):
     extra["k1c_k1d_ms"] = rows[1]["ms"] + rows[2]["ms"]
     for row, part in zip(rows[1:], ("dq", "dkv")):
         row["library_ms"] = extra["sdpa_bwd_ms"]   # one call for both
+    # all three run on the tensor cores: that is their bound
+    for row, part in zip(rows, ("fwd", "dq", "dkv")):
         use_tc_bound(row, *cost[part], "float32")
-    # no atomics: two runs of K1c and K1d give the same bits
+    check(rows[0]["ms"] < rows[0]["library_ms"],
+          f"K1 forward {rows[0]['ms']} ms not under SDPA's forward "
+          f"{rows[0]['library_ms']} ms")
+    # no atomics: two runs of K1 forward, K1c and K1d give the same bits
     with torch.no_grad():
-        runs = [kfa.flash_backward_dq(q, k, v, out, lse, go, True)
+        runs = [kfa.flash_forward(q, k, v, True)
+                + kfa.flash_backward_dq(q, k, v, out, lse, go, True)
                 + kfa.flash_backward_dkv(q, k, v, go, lse, delta, True)
                 for _ in range(2)]
     same = [torch.equal(a, b) for a, b in zip(*runs)]
-    print(f"K1c, K1d twice at {shape}: dq, delta, dk, dv bitwise equal "
-          f"{same}", flush=True)
-    check(all(same), f"K1c / K1d not deterministic: {same}")
-    extra["bwd_bitwise_repeatable"] = all(same)
+    print(f"K1 forward, K1c, K1d twice at {shape}: out, lse, dq, delta, dk, "
+          f"dv bitwise equal {same}", flush=True)
+    check(all(same), f"K1 forward / K1c / K1d not deterministic: {same}")
+    extra["bitwise_repeatable"] = all(same)
     del runs
     print(f"attention fwd + bwd at {shape}: K1 forward + K1c + K1d "
           f"{extra['k1_fwd_dq_dkv_ms']:.5f} ms, SDPA forward + backward "
@@ -843,7 +968,7 @@ def train_kernel_checks(torch, dev):
             cases.append({"name": "flash_attention", "case": case,
                           "part": part, "max_abs_err": err, "limit": limit})
         if case == "bf16":
-            extra["bf16"] = bf16_backward_times(torch, kfa, q, k, v, go)
+            extra["bf16"] = bf16_times(torch, kfa, q, k, v, go)
         del q, k, v, go
 
     # K3: the loss's (8 * 1023, 32000) logits, about 5% of labels -1
@@ -879,15 +1004,18 @@ def train_kernel_checks(torch, dev):
     return rows, cases, extra
 
 
-def bf16_backward_times(torch, kfa, q, k, v, go):
-    """K1c and K1d on the bf16 case at the train step's shape, timed
-    against their tensor-core bounds and SDPA's bf16 backward (PyTorch
-    picks the backend)."""
+def bf16_times(torch, kfa, q, k, v, go):
+    """K1 forward, K1c and K1d on the bf16 case at the train step's
+    shape, timed against their tensor-core bounds and SDPA's bf16
+    forward and backward (PyTorch picks the backend)."""
     import torch.nn.functional as F
 
     b, h, l, d = q.shape
     cost = attention_cost(b, h, l, l, d, True, 2)
     with torch.no_grad():
+        fwd_ms = time_ms(lambda i: kfa.flash_forward(q, k, v, True))[0]
+        sdpa_fwd_ms = time_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))[0]
         out, lse = kfa.flash_forward(q, k, v, True)
         _, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, True)
         dq_ms = time_ms(lambda i: kfa.flash_backward_dq(
@@ -898,11 +1026,15 @@ def bf16_backward_times(torch, kfa, q, k, v, go):
     o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     sdpa_ms = time_ms(lambda i: torch.autograd.grad(
         o, (qs, ks, vs), go, retain_graph=True), iters=20)[0]
-    res = {"dq_ms": dq_ms, "dkv_ms": dkv_ms, "sdpa_bwd_ms": sdpa_ms,
+    res = {"fwd_ms": fwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms, "dq_ms": dq_ms,
+           "dkv_ms": dkv_ms, "sdpa_bwd_ms": sdpa_ms,
+           "fwd_tc_bound_ms": tc_bound_ms(*cost["fwd"], "bfloat16")[0],
            "dq_tc_bound_ms": tc_bound_ms(*cost["dq"], "bfloat16")[0],
            "dkv_tc_bound_ms": tc_bound_ms(*cost["dkv"], "bfloat16")[0]}
-    print(f"bf16 backward at B{b} H{h} L{l} D{d} causal: K1c "
-          f"{dq_ms:.5f} ms (tensor-core bound {res['dq_tc_bound_ms']:.6f}), "
+    print(f"bf16 at B{b} H{h} L{l} D{d} causal: K1 forward {fwd_ms:.5f} ms "
+          f"(tensor-core bound {res['fwd_tc_bound_ms']:.6f}), SDPA bf16 "
+          f"forward {sdpa_fwd_ms:.5f} ms; K1c "
+          f"{dq_ms:.5f} ms (bound {res['dq_tc_bound_ms']:.6f}), "
           f"K1d {dkv_ms:.5f} ms (bound {res['dkv_tc_bound_ms']:.6f}), "
           f"together {dq_ms + dkv_ms:.5f}; SDPA bf16 backward {sdpa_ms:.5f} "
           f"ms", flush=True)
@@ -1512,6 +1644,152 @@ def train_phase(torch, model, dev, card, wrappers, profile):
     return out
 
 
+def write_results(results):
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
+        json.dump(results, fh, indent=1)
+
+
+# --trials: builds of a source with one constant changed, timed against
+# each other in one run. (source, label, [(text, replacement)])
+TRIALS = (
+    ("paged_attention", "span 4", [("constexpr int PA_SPAN = 8;",
+                                    "constexpr int PA_SPAN = 4;")]),
+    ("paged_attention", "span 8 (the source)", []),
+    ("paged_attention", "span 16", [("constexpr int PA_SPAN = 8;",
+                                     "constexpr int PA_SPAN = 16;")]),
+    ("flash_attention", "32-row K/V tiles, 3 blocks per SM at D 64 (the "
+     "source)", []),
+    ("flash_attention", "64-row K/V tiles", [
+        ("template <int DP> constexpr int FWD_N = Tile<DP>::N;",
+         "template <int DP> constexpr int FWD_N = 64;")]),
+    ("flash_attention", "4 blocks per SM at D 64", [
+        ("__launch_bounds__(FA_THREADS, Tile<DP>::MIN_BLOCKS)\n"
+         "flash_fwd_tc_kernel",
+         "__launch_bounds__(FA_THREADS, DP <= 64 ? 4 : 1)\n"
+         "flash_fwd_tc_kernel")]),
+)
+
+
+def trial_builds(trials):
+    """Build each trial's copy of its source (one nvcc each, all started
+    together) under mxnet_tpu_torch/_build/trials; returns the loaded
+    libraries, with the entry points' argtypes set, and the ptxas lines."""
+    import ctypes
+
+    from mxnet_tpu_torch.ops.kernels import _build
+
+    out = _build._OUT / "trials"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, (name, label, subs) in enumerate(trials):
+        src = (_build._SRC / f"{name}.cu").read_text()
+        for old, new in subs:
+            check(old in src, f"trial {label}: {old!r} not in {name}.cu")
+            src = src.replace(old, new)
+        cu, lib = out / f"{name}-{i}.cu", out / f"lib{name}-{i}.so"
+        cu.write_text(src)
+        procs.append((subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._SRC),
+             "-o", str(lib), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib))
+    libs, logs = [], []
+    for (name, label, _), (proc, lib) in zip(trials, procs):
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"trial {label}: nvcc failed\n{log}")
+        cdll = ctypes.CDLL(str(lib))
+        for fn, argtypes in _build._SIGNATURES[name].items():
+            getattr(cdll, fn).argtypes = argtypes
+            getattr(cdll, fn).restype = ctypes.c_int
+        libs.append(cdll)
+        logs.append(ptxas_summary(log))
+        for fn, regs, spill in logs[-1]:
+            print(f"  trial {name} [{label}] ptxas {fn}: {regs}; {spill}")
+    return libs, logs
+
+
+def trial_phase(torch, dev):
+    """``--trials``: the K4 span and K1 forward's tiling, each build timed
+    twice, in turns, at the shapes the main paths give them, after a
+    check against the plain version."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
+
+    libs, logs = trial_builds(TRIALS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 9)
+    heads, d, bs, r, mb = 12, 64, 16, 8, 128
+    table = (torch.randperm(r * mb, generator=g, device=dev)
+             .reshape(r, mb).to(torch.int32).contiguous())
+    q = torch.randn(r, heads, d, generator=g, device=dev)
+    pools = {}
+    for kind, n_sets in (("int8", 4), ("float32", 2)):
+        pools[kind] = []
+        for _ in range(n_sets):
+            kp, vp = (torch.randn(r * mb + 1, heads, bs, d, generator=g,
+                                  device=dev) for _ in range(2))
+            if kind == "int8":
+                kp, vp = tnn.kv_cache_quantize(kp), tnn.kv_cache_quantize(vp)
+            pools[kind].append((kp, vp))
+    paged_cases = [
+        (kind, name, torch.tensor(lens, dtype=torch.int32, device=dev))
+        for kind, name, lens in (
+            ("int8", "lengths 1..2048",
+             [1, 17, 256, 511, 1000, 1500, 2047, 2048]),
+            ("int8", "mid-decode lengths", mid_decode_lengths()),
+            ("float32", "lengths 1..2048",
+             [1, 17, 256, 511, 1000, 1500, 2047, 2048]))]
+    b, l = 8, 1024
+    qkv = {dt: [torch.randn(b, heads, l, d, generator=g, device=dev).to(dt)
+                for _ in range(3)] for dt in (torch.float32, torch.bfloat16)}
+    saved = dict(_build._libs)
+    res = []
+    try:
+        for rep in range(2):
+            for (name, label, _), lib, log in zip(TRIALS, libs, logs):
+                _build._libs[name] = lib
+                row = {"source": name, "trial": label, "rep": rep,
+                       "ptxas": log, "ms": {}}
+                if name == "paged_attention":
+                    for kind, case, lengths in paged_cases:
+                        ps = pools[kind]
+                        with torch.no_grad():
+                            out = kpa.paged_attention_kernel(
+                                q, ps[0][0], ps[0][1], table, lengths)
+                            ref = kpa.paged_attention_plain(
+                                q, ps[0][0], ps[0][1], table, lengths)
+                        err = (out - ref).abs().max().item()
+                        check(err <= 1e-4, f"trial {label}: err {err}")
+                        row["ms"][f"{kind} {case}"] = time_ms(
+                            lambda i: kpa.paged_attention_kernel(
+                                q, ps[i][0], ps[i][1], table, lengths),
+                            len(ps))[0]
+                else:
+                    for dt, (qq, kk, vv) in qkv.items():
+                        with torch.no_grad():
+                            out, _ = kfa.flash_forward(qq, kk, vv, True)
+                            ref, _ = kfa.flash_forward_plain(qq, kk, vv,
+                                                             True)
+                        err = (out.float() - ref.float()).abs().max().item()
+                        lim = FLASH_TOL[str(dt)[6:]] * max(
+                            ref.float().abs().max().item(), 1.0)
+                        check(err <= lim, f"trial {label} {dt}: {err}")
+                        with torch.no_grad():
+                            row["ms"][str(dt)[6:]] = time_ms(
+                                lambda i: kfa.flash_forward(qq, kk, vv,
+                                                            True))[0]
+                print(f"trial {name} [{label}] run {rep + 1}: " + ", ".join(
+                    f"{k} {v:.5f} ms" for k, v in row["ms"].items()),
+                    flush=True)
+                res.append(row)
+    finally:
+        _build._libs.clear()
+        _build._libs.update(saved)
+    return res
+
+
 def main(argv):
     import torch
 
@@ -1552,22 +1830,25 @@ def main(argv):
         for fn, regs, spill in results["ptxas"][name]:
             print(f"  ptxas[{name}] {fn}: {regs}; {spill}")
     results["build_s"] = build_s
-    # K1c and K1d must multiply on the tensor cores: HMMA in every
-    # instantiation of both kernels
-    mma = sass_mma_counts(_build._lib_path("flash_attention_bwd"))
-    if mma is None:
-        print("cuobjdump not found: SASS of K1c / K1d not inspected")
-    else:
-        bwd = {kernel_name(n): c for n, c in mma.items()
-               if "flash_bwd_" in n}
-        print(f"cuobjdump -sass flash_attention_bwd: HMMA per kernel {bwd}",
-              flush=True)
-        check(len(bwd) == 8 and all(bwd.values()),
-              f"K1c / K1d instantiations without HMMA: {bwd}")
-        results["bwd_sass_hmma"] = bwd
-
+    # the attention kernels must multiply on the tensor cores: HMMA in
+    # every instantiation of K1 forward (4), K1c and K1d (8)
+    results["sass_hmma"] = {}
+    for src, prefix, n in (("flash_attention", "flash_fwd_", 4),
+                           ("flash_attention_bwd", "flash_bwd_", 8)):
+        mma = sass_mma_counts(_build._lib_path(src))
+        if mma is None:
+            print(f"cuobjdump not found: SASS of {src} not inspected")
+            continue
+        got = {kernel_name(k): c for k, c in mma.items() if prefix in k}
+        print(f"cuobjdump -sass {src}: HMMA per kernel {got}", flush=True)
+        check(len(got) == n and all(got.values()),
+              f"{src}: instantiations without HMMA: {got}")
+        results["sass_hmma"][src] = got
+    if "--trials" in argv:
+        results["trials"] = trial_phase(torch, dev)
     # -- phase 2: kernels against their plain versions ----------------------
     rows = kernel_checks(torch, dev)
+    results["paged_edges"] = paged_edge_checks(torch, dev)
     results["variants"] = variant_checks(torch, dev)
     train_rows, results["train_variants"], results["attention"] = \
         train_kernel_checks(torch, dev)
@@ -1578,6 +1859,11 @@ def main(argv):
     entries = {}
     for row in rows:
         entries.setdefault(row["name"], row)
+    if "--kernels" in argv:      # phases 1 and 2 only: no result line
+        results["kernels"] = rows
+        write_results(results)
+        print("chip_smoke --kernels: phases 1 and 2 passed")
+        return 0
 
     # -- phase 3: the main path ---------------------------------------------
     t0 = time.perf_counter()
@@ -1642,6 +1928,7 @@ def main(argv):
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 2)
     lengths = prompt_lens + NEW_TOKENS // 2
+    check(lengths.tolist() == mid_decode_lengths(), "mid-decode lengths")
     args = decode_state(torch, model, lengths, g)
     toks, pk, pv, table, pos = args
 
@@ -1742,9 +2029,7 @@ def main(argv):
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
-        json.dump(results, fh, indent=1)
+    write_results(results)
     print(f"total {results['seconds']:.1f} s")
     print(card)
     print(json.dumps({"kernels": [{k: e[k] for k in LINE_KEYS}

@@ -1,260 +1,225 @@
-// K1 — flash attention forward for Hopper. Its FA2 backward (K1c, K1d)
-// is in flash_attention_bwd.cu.
+// K1 — flash attention forward on Hopper's tensor cores. Its FA2 backward
+// (K1c, K1d) is in flash_attention_bwd.cu; the two share flash_mma.cuh.
 //
 // Replaces two TPU kernels of mxnet_tpu/ops/pallas/flash_attention.py:
 // `_flash_kernel` (K1a, :70) and `_flash_kernel_resident` (K1b, :144),
 // both reached through `_flash_forward` (:264). The two TPU bodies
 // compute the same function and differ only in how K/V reach VMEM
 // (streamed per grid step, or the whole head resident). On Hopper one
-// kernel serves both: K/V tiles are staged through shared memory by a
-// loop inside the block, whatever the length.
+// kernel serves both: K/V tiles stream through shared memory by a loop
+// inside the block, whatever the length.
 //
-// Layout (B*H, L, D), contiguous, f32 or bf16; D <= 128. The mask is
+// Layout (B*H, L, D), contiguous, f32 or bf16, 1 <= D <= 128. The mask is
 // bottom-right causal, k <= q + (Lk - Lq), with the finite -1e30 of the
 // TPU kernels; rows and keys past the ragged edge are masked here (the
 // TPU padded to a block). A row with no live key gives out = 0 and
-// lse = -1e30 (the `l == 0` guard), as K1a does.
+// lse = -1e30 (the `l == 0` guard), as K1a does; lse = m + log(l).
 //
 // Bound on this card, f32 at B8 H12 L1024 D64 causal: operations. The
-// forward does 2 products over the causal half (12.9 GFLOP, 0.19 ms at
-// 67 TFLOP/s f32) and moves about 0.1 GB (0.03 ms). f32 runs on the FMA
-// units (no TF32, so the reference arithmetic holds); bf16 operands are
-// widened to f32, which is exact, and accumulate in f32, with p rounded
-// to bf16 before P.V, as the TPU kernels round.
+// forward does 2 products over the causal half (12.9 GFLOP) and moves
+// about 0.1 GB (0.03 ms). On the FMA units (67 TFLOP/s f32) that is
+// 0.19 ms, where the previous design of this kernel ran; on the tensor
+// cores in three TF32 passes (495 TFLOP/s each) 0.078 ms.
 //
-// Design: 64-row tiles, 256 threads per block (two blocks per SM, so
-// at most 128 registers a thread), each thread owning a 4 x 4
-// block of the 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j) and
-// 4 rows of the 64 x D output. Tiles sit row-major in shared memory with a
-// row stride of D + 4 floats, so every inner-loop operand is one 16-byte
-// load without bank conflicts and each load feeds 16 FMAs. A row's 64
-// scores live in the 16 lanes of one half-warp, so the online-softmax max
-// and sum are four shuffles. Causal tiles wholly above the diagonal are
-// not visited. The sequential grid axis of the TPU kernels, whose VMEM
-// scratch carried m / l / acc across grid steps, becomes the loop inside
-// the block; nothing carries between blocks and nothing is accumulated
-// with atomics, so results are deterministic.
-#include "common.cuh"
+// Design: the dQ kernel of the backward with an online softmax in place
+// of its dS step.
+// - A block owns 64 q rows (4 warps x 16). K and V stream in
+//   Tile<DP>::N-row tiles through the two-stage `cp.async` ring of
+//   `stage_rows`, so tile t + 1 loads while tile t multiplies.
+// - S = Q.K^T by `mma.sync`: f32 in three TF32 passes (hi.hi + hi.lo +
+//   lo.hi, `OpsF32`), bf16 in one m16n8k16 pass. Q's A fragments are
+//   loaded from shared memory (and split) per tile: a first build that
+//   kept them in registers across the K loop ran 7% slower in f32.
+// - The online softmax runs on the accumulator in registers. Thread (g, t)
+//   holds rows g and g + 8 of its warp's 16: the row max is two quad
+//   shuffles, the row sum is kept per thread and summed over the quad
+//   once at the end. Scores are taken in units of log2 (scale folded with
+//   log2 e) and exponentiated by the SFU (`exp2_approx`). The accumulator
+//   is rescaled by alpha once per tile.
+// - O += P.V by `c_times_tile`: p becomes the A operand in place
+//   (`a_from_c`, rounded to bf16 first in bf16, as the TPU kernels round
+//   p), V is read column-wise (`load_b_col`, `ldmatrix.trans` in bf16),
+//   and each pair of k-steps is added by a rounding FADD (`mma_into`).
+// - Heads are the fast grid axis and each head's longest causal tile
+//   starts first; tiles wholly above the diagonal are not visited. No
+//   atomics: each output element is summed by one thread in a fixed
+//   order, so results are bitwise repeatable.
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int FA_T = 64;          // rows of a q tile and of a k tile
-constexpr int FA_THREADS = 256;   // 16 x 16
-constexpr int FA_PS = FA_T + 4;   // row stride of a 64 x 64 score tile
-constexpr float NEG_BIG = -1e30f; // finite: -inf breaks the online carry
+// width of the streamed K/V tiles
+template <int DP> constexpr int FWD_N = Tile<DP>::N;
 
-__device__ __forceinline__ float f4(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// The value a TPU kernel would feed its next product: unchanged for f32,
-// rounded to bf16 (nearest even) for bf16 operands.
-template <typename T>
-__device__ __forceinline__ float as_operand(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// Stage rows [r0, r0 + 64) of a (rows, d) matrix into a 64 x DP f32 tile
-// (row stride DP + 4), zero past `rows` and past column d.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int rows, int d) {
-  for (int idx = threadIdx.x; idx < FA_T * DP; idx += FA_THREADS) {
-    const int r = idx / DP, c = idx % DP;
-    float v = 0.0f;
-    if (r0 + r < rows && c < d) v = to_f32(src[(int64_t)(r0 + r) * d + c]);
-    dst[r * (DP + 4) + c] = v;
-  }
-}
-
-// acc[i][j] = sum_c a[ty + 16 i][c] * b[tx + 16 j][c] over c < DP.
-template <int DP>
-__device__ __forceinline__ void tile_abT(const float* a, const float* b,
-                                         int ty, int tx, float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int c = 0; c < DP; c += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * (DP + 4) + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * (DP + 4) + c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
-        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
-        acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
-        acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[i][4 c + e] += sum_k p[ty + 16 i][k] * v[k][64 c + 4 tx + e] over
-// the 64 rows k of a score tile `p` (stride FA_PS) and a value tile `v`.
-template <int DP>
-__device__ __forceinline__ void tile_pv(const float* p, const float* v,
-                                        int ty, int tx,
-                                        float acc[4][DP / 16]) {
-#pragma unroll 2
-  for (int k = 0; k < FA_T; k += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * FA_PS + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int c = 0; c < DP / 64; ++c) {
-        const float4 w = *reinterpret_cast<const float4*>(
-            v + (k + kk) * (DP + 4) + 64 * c + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pk = f4(pv[i], kk);
-          acc[i][4 * c + 0] = fmaf(pk, w.x, acc[i][4 * c + 0]);
-          acc[i][4 * c + 1] = fmaf(pk, w.y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(pk, w.z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(pk, w.w, acc[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-}
-
-// max / sum over the 16 lanes of a half-warp (one score row)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ bool live(int qpos, int kpos, int lq, int lk,
-                                     int causal) {
-  return qpos < lq && kpos < lk && (!causal || kpos <= qpos + (lk - lq));
-}
-
-// number of k tiles a q tile starting at q0 can see
-__device__ __forceinline__ int live_k_tiles(int q0, int lq, int lk,
-                                            int causal) {
-  const int n_k = (lk + FA_T - 1) / FA_T;
-  if (!causal) return n_k;
-  const int last = min(q0 + FA_T, lq) - 1 + (lk - lq);  // last visible key
-  return last < 0 ? 0 : min(n_k, last / FA_T + 1);
-}
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(FA_THREADS, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int lq, int lk, int d, int causal,
-                 float scale) {
-  extern __shared__ float4 fa_smem[];
-  float* q_s = reinterpret_cast<float*>(fa_smem);
-  float* k_s = q_s + FA_T * (DP + 4);
-  float* v_s = k_s + FA_T * (DP + 4);
-  float* p_s = v_s + FA_T * (DP + 4);
-  constexpr int OC = DP / 16;  // output columns per thread
-  const int n_q = (lq + FA_T - 1) / FA_T;
-  const int q0 = (n_q - 1 - (int)blockIdx.x) * FA_T;  // longest rows first
-  const int64_t bh = blockIdx.y;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+__global__ void __launch_bounds__(FA_THREADS, Tile<DP>::MIN_BLOCKS)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out,
+                    float* __restrict__ lse, int lq, int lk, int d,
+                    int causal, float scale, int vec) {
+  using Ops = typename OpsOf<T>::type;
+  constexpr int LD = DP + Ops::PAD, BN = FWD_N<DP>, NT = BN / 8;
+  constexpr int NS = Tile<DP>::STAGES, KSTEPS = DP / Ops::KS;
+  extern __shared__ float4 fwd_smem[];
+  T* q_s = reinterpret_cast<T*>(fwd_smem);
+  T* kv_s = q_s + FA_ROWS * LD;  // [stage][K, V][BN][LD]
+  const int lane = threadIdx.x & 31, r0 = 16 * (threadIdx.x >> 5);
+  const int n_q = (lq + FA_ROWS - 1) / FA_ROWS;
+  // blocks start in order of blockIdx.x, then .y: every head's longest
+  // causal tile goes first and the shortest last
+  const int q0 = (n_q - 1 - (int)blockIdx.y) * FA_ROWS;
+  const int64_t bh = blockIdx.x;
   const T* kb = k + bh * lk * d;
   const T* vb = v + bh * lk * d;
-  load_tile<T, DP>(q_s, q + bh * lq * d, q0, lq, d);
-
-  float m[4], l[4], acc[4][OC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_BIG;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < OC; ++c) acc[i][c] = 0.0f;
+  if (d < DP) {  // pad columns read as zeros
+    const int n16 = (FA_ROWS + 2 * NS * BN) * LD * (int)sizeof(T) / 16;
+    for (int i = threadIdx.x; i < n16; i += FA_THREADS)
+      fwd_smem[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
   }
-  const int n_k = live_k_tiles(q0, lq, lk, causal);
+  int n_k = (lk + BN - 1) / BN;
+  if (causal) {
+    const int last = min(q0 + FA_ROWS, lq) - 1 + (lk - lq);
+    n_k = last < 0 ? 0 : min(n_k, last / BN + 1);
+  }
+  stage_rows<T, DP, LD>(q_s, q + bh * lq * d, q0, FA_ROWS, lq, d, vec);
+  cp_async_commit();
+  // the ring: K and V tile kt in slot kt % NS, NS - 1 tiles ahead
+  auto stage = [&](int kt) {
+    T* dst = kv_s + (kt % NS) * 2 * BN * LD;
+    stage_rows<T, DP, LD>(dst, kb, kt * BN, BN, lk, d, vec);
+    stage_rows<T, DP, LD>(dst + BN * LD, vb, kt * BN, BN, lk, d, vec);
+  };
+#pragma unroll
+  for (int kt = 0; kt < NS - 1; ++kt) {
+    if (kt < n_k) stage(kt);
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();  // Q is in
+  __syncthreads();
+  // scores in units of log2: x = s scale log2(e), p = 2^(x - m)
+  const float scale2 = scale * LOG2E;
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.0f, 0.0f};
+  float acc[DP / 8][4];
+  zero(acc);
   for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * FA_T;
-    __syncthreads();  // the previous tile's P.V has read k_s, v_s, p_s
-    load_tile<T, DP>(k_s, kb, k0, lk, d);
-    load_tile<T, DP>(v_s, vb, k0, lk, d);
+    if (kt + NS - 1 < n_k) stage(kt + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // tile kt is in
     __syncthreads();
-    float s[4][4];
-    tile_abT<DP>(q_s, k_s, ty, tx, s);
+    const T* k_s = kv_s + (kt % NS) * 2 * BN * LD;
+    const T* v_s = k_s + BN * LD;
+    const int k0 = kt * BN;
+    float s[NT][4];
+    zero(s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float rmax = NEG_BIG;
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const auto a = Ops::template load_a<LD>(q_s, r0, ks * Ops::KS, lane);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = live(qpos, k0 + tx + 16 * j, lq, lk, causal);
-        s[i][j] = ok ? s[i][j] * scale : NEG_BIG;
-        rmax = fmaxf(rmax, s[i][j]);
+      for (int j = 0; j < NT; j += 2) {
+        typename Ops::B y0, y1;
+        Ops::template load_b2<LD>(k_s, 8 * j, ks * Ops::KS, lane, y0, y1);
+        Ops::mma(s[j], a, y0);
+        Ops::mma(s[j + 1], a, y1);
       }
-      const float m_new = fmaxf(m[i], row_max(rmax));
-      float rsum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = live(qpos, k0 + tx + 16 * j, lq, lk, causal);
-        const float p = ok ? expf(s[i][j] - m_new) : 0.0f;
-        rsum += p;
-        p_s[(ty + 16 * i) * FA_PS + tx + 16 * j] = as_operand<T>(p);
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + row_sum(rsum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < OC; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
-    tile_pv<DP>(p_s, v_s, ty, tx, acc);
+    // every pair of this warp's 16 rows and the tile's keys is live
+    const bool full = q0 + r0 + 16 <= lq && k0 + BN <= lk &&
+                      (!causal || k0 + BN - 1 <= q0 + r0 + (lk - lq));
+    float mx[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qpos = q0 + r0 + (lane >> 2) + 8 * h;
+        const int kpos = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+        s[j][e] = full || live(qpos, kpos, lq, lk, causal)
+                      ? s[j][e] * scale2
+                      : NEG_BIG;
+        mx[h] = fmaxf(mx[h], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2_approx(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        // masked keys give p = 0, also in a row that has seen no key
+        const float p = s[j][e] > NEG_BIG ? exp2_approx(s[j][e] - m[h])
+                                          : 0.0f;
+        l[h] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int jd = 0; jd < DP / 8; ++jd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jd][e] *= alpha[e >> 1];
+    c_times_tile<Ops, DP, LD>(s, v_s, lane, acc);
+    __syncthreads();  // every warp is done with this stage
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= lq) continue;
-    const float denom = l[i] == 0.0f ? 1.0f : l[i];
-    T* orow = out + (bh * lq + row) * d;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
 #pragma unroll
-    for (int c = 0; c < OC; ++c) {
-      const int col = 64 * (c / 4) + 4 * tx + (c % 4);
-      if (col < d) orow[col] = from_f32<T>(acc[i][c] / denom);
+  for (int jd = 0; jd < DP / 8; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int row = q0 + r0 + (lane >> 2) + 8 * h;
+      const int col = 8 * jd + 2 * (lane & 3) + (e & 1);
+      const float denom = l[h] == 0.0f ? 1.0f : l[h];
+      if (row < lq && col < d)
+        out[(bh * lq + row) * d + col] = from_f32<T>(acc[jd][e] / denom);
     }
-    if (tx == 0) lse[bh * lq + row] = m[i] + logf(denom);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + r0 + (lane >> 2) + 8 * h;
+      if (row < lq)
+        lse[bh * lq + row] =
+            l[h] == 0.0f ? NEG_BIG : m[h] * LN2 + logf(l[h]);
+    }
   }
 }
 
-constexpr size_t tile_floats(int dp) { return (size_t)FA_T * (dp + 4); }
+// shared bytes: the block's 64 q rows and the ring's stages of K and V
+template <typename T, int DP>
+constexpr size_t fwd_smem_bytes() {
+  using Ops = typename OpsOf<T>::type;
+  constexpr int LD = DP + Ops::PAD;
+  return (size_t)(FA_ROWS + 2 * Tile<DP>::STAGES * FWD_N<DP>) * LD *
+         sizeof(T);
+}
 
 template <typename T, int DP>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int bh, int lq, int lk, int d, int causal, float scale,
         cudaStream_t s) {
-  const size_t smem = (3 * tile_floats(DP) + FA_T * FA_PS) * sizeof(float);
-  auto kern = flash_fwd_kernel<T, DP>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = fwd_smem_bytes<T, DP>();
+  auto kern = flash_fwd_tc_kernel<T, DP>;
+  cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((lq + FA_T - 1) / FA_T, bh);
+  dim3 grid(bh, (lq + FA_ROWS - 1) / FA_ROWS);
   kern<<<grid, FA_THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), lq, lk, d, causal, scale);
+      static_cast<float*>(lse), lq, lk, d, causal, scale,
+      (int)rows_vec<T>(d, {q, k, v}));
   return (int)cudaGetLastError();
-}
-
-bool bad_shape(int bh, int lq, int lk, int d) {
-  return bh < 1 || bh > 65535 || lq < 1 || lk < 1 || d < 1 || d > 128;
 }
 
 }  // namespace

@@ -59,8 +59,8 @@ _SIGNATURES = {
         "mxt_rms_norm_fwd": [_P, _P, _P, _P, _I64, _I, _F, _I, _P],
     },
     "paged_attention": {
-        "mxt_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _F, _I, _I, _P],
+        "mxt_paged_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
+        "mxt_paged_attention_span": [_P],
     },
     "fused_decode": {
         "mxt_qkv_project": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -7,8 +7,8 @@ Replaces four TPU kernels with three hand-written CUDA kernels:
   ``_flash_kernel`` (K1a, ``:70``) and ``_flash_kernel_resident`` (K1b,
   ``:144``), both reached through ``_flash_forward`` (``:264``). The TPU
   bodies compute one function and differ only in how K/V reach VMEM; on
-  Hopper a loop inside the block stages K/V tiles through shared memory
-  at any length. It runs f32 on the FMA units (no TF32).
+  Hopper a loop inside the block streams K/V tiles through shared memory
+  at any length, with an online softmax on the scores in registers.
 - :func:`flash_backward_dq` — ``_bwd_dq_kernel`` (K1c, ``:379``), in
   ``csrc/flash_attention_bwd.cu``: dQ and D = rowsum(dO * O), which it
   also writes out.
@@ -16,12 +16,13 @@ Replaces four TPU kernels with three hand-written CUDA kernels:
   the same source: dK and dV, reading the D that K1c wrote (K1d
   recomputed it per block).
 
-The two backward kernels multiply on the tensor cores (``mma.sync``):
-bf16 operands in one pass, f32 operands split into a TF32 high and low
-part and multiplied in three passes (hi.hi + hi.lo + lo.hi), which keeps
-about f32 accuracy. Bound on the H100 at the main path's (8, 12, 1024,
-64) causal f32: operations, about 0.19 ms forward at 67 TFLOP/s f32, and
-0.117 ms dQ and 0.156 ms dK/dV at three TF32 passes of 495 TFLOP/s.
+All three multiply on the tensor cores (``mma.sync``, building blocks
+shared in ``csrc/flash_mma.cuh``): bf16 operands in one pass, f32
+operands split into a TF32 high and low part and multiplied in three
+passes (hi.hi + hi.lo + lo.hi), which keeps about f32 accuracy. Bound on
+the H100 at the main path's (8, 12, 1024, 64) causal f32: operations, at
+three TF32 passes of 495 TFLOP/s 0.078 ms forward, 0.117 ms dQ and
+0.156 ms dK/dV.
 
 :func:`flash_attention` is the differentiable entry point, a
 ``torch.autograd.Function`` as the reference's is a ``jax.custom_vjp``:

@@ -167,6 +167,112 @@ def test_paged_attention_matches_jax(dtype, tol):
                                     atol=tol)
 
 
+def _paged_split(q, k_pool, v_pool, block_table, lengths, span):
+    """The arithmetic of the split K4 kernel in torch: for each (lane,
+    head), each span of ``span`` pool blocks gives an exact-softmax
+    partial (m, l, acc) over its positions, positions at or past the
+    lane's length (capped at MB * bs) masked with the finite -1e30; the
+    partials are merged in span order with a max(l, 1e-30) denominator.
+    A lane of length 0 gives 0."""
+    r, h, d = q.shape
+    bs, mb = k_pool.shape[2], block_table.shape[1]
+    if k_pool.dtype == torch.int8:
+        kf = tnn.kv_cache_dequantize(k_pool, torch.float32)
+        vf = tnn.kv_cache_dequantize(v_pool, torch.float32)
+    else:
+        kf, vf = k_pool.float(), v_pool.float()
+    out = torch.zeros(r, h, d)
+    for lane in range(r):
+        n = min(int(lengths[lane]), mb * bs)
+        parts = []
+        for b0 in range(0, mb, span):
+            if b0 * bs >= n:
+                break
+            blocks = block_table[lane, b0:b0 + span].long()
+            k = kf[blocks].transpose(0, 1).reshape(h, -1, d)   # (H, P, D)
+            v = vf[blocks].transpose(0, 1).reshape(h, -1, d)
+            pos = b0 * bs + torch.arange(k.shape[1])
+            s = torch.einsum("hd,hpd->hp", q[lane].float(), k) * d ** -0.5
+            s = torch.where(pos < n, s, torch.full_like(s, -1e30))
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("hp,hpd->hd", p, v)))
+        if not parts:
+            continue
+        m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+        l_all, acc = torch.zeros(h, 1), torch.zeros(h, d)
+        for m, l, a in parts:
+            w = torch.exp(m - m_all)
+            l_all, acc = l_all + l * w, acc + a * w
+        out[lane] = acc / torch.clamp(l_all, min=1e-30)
+    return out
+
+
+_SPLIT_INPUTS = {}
+
+
+def _paged_split_inputs(pool_dtype):
+    """r 3, h 4, d 16, bs 8, mb 6 inputs, made once per pool dtype."""
+    if pool_dtype not in _SPLIT_INPUTS:
+        rng = onp.random.RandomState(31)
+        r, h, d, bs, nb, mb = 3, 4, 16, 8, 20, 6
+        q = rng.randn(r, h, d).astype(onp.float32)
+        kp = rng.randn(nb, h, bs, d).astype(onp.float32)
+        vp = rng.randn(nb, h, bs, d).astype(onp.float32)
+        bt = rng.permutation(nb)[:r * mb].reshape(r, mb).astype(onp.int32)
+        if pool_dtype == "int8":
+            kp = onp.asarray(jnn.kv_cache_quantize(jnp.asarray(kp)))
+            vp = onp.asarray(jnn.kv_cache_quantize(jnp.asarray(vp)))
+        _SPLIT_INPUTS[pool_dtype] = (q, kp, vp, bt)
+    return _SPLIT_INPUTS[pool_dtype]
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("span", [1, 2, 4])
+def test_paged_split_merge_matches_jax_kernel(span, pool_dtype):
+    """The split-and-merge arithmetic of the CUDA K4 kernel (a span of
+    pool blocks per block of the grid, partials merged in span order),
+    emulated in torch, against the Pallas _paged_kernel in interpret mode
+    and the port's paged_attention_plain, at 2e-5: lengths 1, span - 1,
+    span, span + 1 positions, MB * bs and above MB * bs (capped)."""
+    q, kp, vp, bt = _paged_split_inputs(pool_dtype)
+    bs, mb = kp.shape[2], bt.shape[1]
+    sp = span * bs
+    for lens in ([1, sp - 1, sp], [sp + 1, mb * bs, mb * bs + 5]):
+        lens = onp.array(lens, onp.int32)
+        want = jpaged.paged_attention_kernel(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(bt), jnp.asarray(lens), interpret=True)
+        tq, tk, tv, tbt, tl = _t(q), _t(kp), _t(vp), _t(bt), _t(lens)
+        got = _paged_split(tq, tk, tv, tbt, tl, span)
+        plain = tpaged.paged_attention_plain(tq, tk, tv, tbt, tl)
+        onp.testing.assert_allclose(got.numpy(), onp.asarray(want),
+                                    rtol=2e-5, atol=2e-5)
+        onp.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2e-5,
+                                    atol=2e-5)
+
+
+def test_paged_workspace_is_sized_by_the_span_and_kept():
+    """The K4 wrapper's workspace: R*H*S*(D+2) f32 partials and R*H int32
+    counters at 0, S = ceil(MB / span) from the library, one pair per
+    device, stream and shape."""
+    class Lib:
+        _span_blocks = 8
+
+    tpaged._WORKSPACES.clear()
+    dev = torch.device("cpu")
+    ws, cnt = tpaged._workspace(Lib, dev, 0, 96, 128, 64)
+    assert ws.dtype == torch.float32 and ws.numel() == 96 * 16 * 66
+    assert cnt.dtype == torch.int32 and cnt.numel() == 96
+    assert not cnt.any()
+    assert tpaged._workspace(Lib, dev, 0, 96, 128, 64)[0] is ws
+    assert tpaged._workspace(Lib, dev, 0, 96, 129, 64)[0].numel() \
+        == 96 * 17 * 66
+    assert tpaged._workspace(Lib, dev, 1, 96, 128, 64)[0] is not ws
+    tpaged._WORKSPACES.clear()
+
+
 # ---------------------------------------------------------------------------
 # K5a / K5b: fused projections
 # ---------------------------------------------------------------------------

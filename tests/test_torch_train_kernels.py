@@ -187,6 +187,49 @@ def test_flash_backward_3xtf32_split_holds_f32_tolerance(mode):
     assert min(errs[1]) > 1e-5, errs
 
 
+@pytest.mark.parametrize("mode", ["nearest", "truncate"])
+def test_flash_forward_3xtf32_split_holds_f32_tolerance(mode):
+    """Why the K1 forward splits f32 operands into three TF32 passes: its
+    arithmetic, emulated (S = QK^T and O = P.V each as hi.hi + hi.lo +
+    lo.hi, an online softmax over 32-key tiles in units of log2, P.V
+    added to the rescaled accumulator per two 8-key k-steps, lse =
+    m + log(l)), stays within the card's f32 tolerance (chip_smoke's
+    FLASH_TOL, 1e-5 of the largest magnitude) of flash_forward_plain in
+    out and lse, and one TF32 pass does not."""
+    q, k, v = (_t(a) for a in _qkv(23, 1, 2, 256, 256, 64))
+    scale = 64 ** -0.5
+    want_out, want_lse = tfa.flash_forward_plain(q, k, v, True, scale)
+    live = torch.ones(256, 256, dtype=torch.bool).tril()
+    log2e = 1.4426950408889634
+    errs = {}
+    for passes in (3, 1):
+        def mm(a, b):
+            return _mm_tf32(a, b, passes, mode)
+        m = torch.full((1, 2, 256, 1), -1e30)
+        l = torch.zeros(1, 2, 256, 1)
+        acc = torch.zeros(1, 2, 256, 64)
+        for k0 in range(0, 256, 32):
+            kt, vt = k[:, :, k0:k0 + 32], v[:, :, k0:k0 + 32]
+            x = mm(q, kt.transpose(-1, -2)) * (scale * log2e)
+            x = x.masked_fill(~live[:, k0:k0 + 32], -1e30)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(x > -1e30, torch.exp2(x - m_new),
+                            torch.zeros_like(x))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha
+            for c in range(0, 32, 16):
+                acc = acc + mm(p[..., c:c + 16], vt[:, :, c:c + 16])
+            m = m_new
+        out = acc / l
+        lse = (m / log2e + torch.log(l))[..., 0]
+        errs[passes] = [
+            ((out - want_out).abs().max() / want_out.abs().max()).item(),
+            ((lse - want_lse).abs().max() / want_out.abs().max()).item()]
+    assert max(errs[3]) <= 1e-5, errs
+    assert errs[1][0] > 1e-5, errs
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_autograd_matches_torch_autograd(causal):
     """The port's flash_attention (a torch.autograd.Function) on the CPU
@@ -406,27 +449,27 @@ def test_build_log_is_kept_beside_the_library(monkeypatch, tmp_path):
     assert _build.build_log("cross_entropy") == ""
 
 
+@pytest.mark.parametrize("part", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("dtype,passes,rate", [
     ("float32", 3, 495e12), ("bfloat16", 1, 989e12)])
 def test_chip_smoke_bounds_k1c_k1d_at_the_tensor_core_rate(dtype, passes,
-                                                           rate):
-    """The kernels line's ``bound_ms`` of K1c and K1d is the bound of the
-    tensor cores they run on (f32: three TF32 passes); the f32-FMA bound
-    stays beside it as ``fma_bound_ms``."""
+                                                           rate, part):
+    """The kernels line's ``bound_ms`` of K1 forward, K1c and K1d is the
+    bound of the tensor cores they run on (f32: three TF32 passes); the
+    f32-FMA bound stays beside it as ``fma_bound_ms``."""
     import chip_smoke
 
     itemsize = 4 if dtype == "float32" else 2
     cost = chip_smoke.attention_cost(8, 12, 1024, 1024, 64, True, itemsize)
-    for part in ("dq", "dkv"):
-        nbytes, flops = cost[part]
-        fma_ms, fma_by = chip_smoke.bound_ms(nbytes, flops)
-        row = {"name": part, "case": dtype, "ms": 1.0, "bound_ms": fma_ms,
-               "bound_by": fma_by}
-        chip_smoke.use_tc_bound(row, nbytes, flops, dtype)
-        by_bytes, by_ops = nbytes / 3.35e12, passes * flops / rate
-        assert row["bound_ms"] == pytest.approx(1e3 * max(by_bytes, by_ops),
-                                                rel=1e-12)
-        assert row["bound_by"] == ("bytes" if by_bytes >= by_ops
-                                   else "operations")
-        assert (row["fma_bound_ms"], row["fma_bound_by"]) == (fma_ms, fma_by)
-        assert row["bound_ms"] < row["fma_bound_ms"]
+    nbytes, flops = cost[part]
+    fma_ms, fma_by = chip_smoke.bound_ms(nbytes, flops)
+    row = {"name": part, "case": dtype, "ms": 1.0, "bound_ms": fma_ms,
+           "bound_by": fma_by}
+    chip_smoke.use_tc_bound(row, nbytes, flops, dtype)
+    by_bytes, by_ops = nbytes / 3.35e12, passes * flops / rate
+    assert row["bound_ms"] == pytest.approx(1e3 * max(by_bytes, by_ops),
+                                            rel=1e-12)
+    assert row["bound_by"] == ("bytes" if by_bytes >= by_ops
+                               else "operations")
+    assert (row["fma_bound_ms"], row["fma_bound_by"]) == (fma_ms, fma_by)
+    assert row["bound_ms"] < row["fma_bound_ms"]
