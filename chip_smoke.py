@@ -8,8 +8,11 @@ NVIDIA H100.
                                        # by kernel
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result)
     python3 chip_smoke.py --trials     # also, after phase 1, trial builds
-                                       # of K4's span and K1 forward's
-                                       # tiling timed against each other
+                                       # of K4's span, K1 forward's
+                                       # tiling and K5a's cluster size,
+                                       # threads and slab copies (and two
+                                       # diagnostic K5a builds) timed
+                                       # against each other
 
 Phases (each asserts; any failure exits non-zero before the result line):
 
@@ -35,7 +38,17 @@ Phases (each asserts; any failure exits non-zero before the result line):
    bound printed beside it; cuobjdump must find HMMA in every
    instantiation. K4 is timed at phase 3's mid-decode lengths too, must
    beat its plain version, and is held at the edges of its split
-   (:func:`paged_edge_checks`). K2r (RMSNorm
+   (:func:`paged_edge_checks`). K2 is checked and timed on both of its
+   routes at the decode, prefill and train shapes (the warp route through
+   the wrapper, the block route through its C entry), and on the block
+   route through the wrapper at widths the warp route does not take
+   (4096, 770). K5a runs as a thread-block cluster fed by bulk copies:
+   cuobjdump must find the bulk copy in every instantiation and the
+   cluster barrier in the int8 ones; two runs must give the same bits;
+   20 tokens (three chunks) and a width on its head route (U 4096) must
+   give the plain version's rows byte for byte on exact inputs. A
+   near-empty launch (:func:`launch_floor`) is timed beside K2 and K5a.
+   K2r (RMSNorm
    forward) and R (runtime-compiled user kernels) are checked at the
    front-door path's shapes (:func:`frontdoor_kernel_checks`).
 3. The main path: gpt_like at full width (vocab 32000, units 768, hidden
@@ -251,24 +264,72 @@ def ptxas_summary(log):
     return out
 
 
-def sass_mma_counts(lib):
-    """``cuobjdump -sass`` of a built kernel library: the number of
-    tensor-core instructions (HMMA) in each kernel, by mangled name, or
-    None where the toolkit has no cuobjdump."""
+def sass_opcodes(lib):
+    """``cuobjdump -sass`` of a built kernel library: the count of each
+    instruction mnemonic in each kernel, by mangled name, or None where
+    the toolkit has no cuobjdump."""
+    import re
+    from collections import Counter
+
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     exe = os.path.join(home, "bin", "cuobjdump")
     if not os.path.exists(exe):
         return None
     out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
+    ins = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
     counts, fn = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+            counts[fn] = Counter()
+        elif fn is not None:
+            m = ins.search(line)
+            if m:
+                counts[fn][m.group(1)] += 1
     return counts
+
+
+def sass_mma_counts(lib):
+    """The number of tensor-core instructions (HMMA) in each kernel of a
+    built library, by mangled name, or None without cuobjdump."""
+    ops = sass_opcodes(lib)
+    if ops is None:
+        return None
+    return {fn: sum(c for op, c in ctr.items() if op.startswith("HMMA"))
+            for fn, ctr in ops.items()}
+
+
+# K5a's cluster route in SASS: the bulk copy (cp.async.bulk) and the
+# cluster barrier (barrier.cluster, cluster.sync); mbarrier and fence
+# instructions are printed beside them
+SASS_BULK, SASS_CLUSTER_BAR = "BLKCP", "CGABAR"
+SASS_SHOWN = ("BLK", "TMA", "CGA", "SYNCS", "FENCE", "MEMBAR")
+
+
+def k5a_sass_check(path):
+    """Every qkv_cluster_kernel instantiation must issue a bulk copy, and
+    the int8 ones (``Lb1E``: QUANT true) a cluster barrier; prints the
+    mnemonics found. Returns them, or None without cuobjdump."""
+    ops = sass_opcodes(path)
+    if ops is None:
+        print("cuobjdump not found: SASS of fused_decode not inspected")
+        return None
+    found = {}
+    for fn, ctr in ops.items():
+        if "qkv_cluster_kernel" not in fn:
+            continue
+        shown = {op: c for op, c in sorted(ctr.items())
+                 if any(k in op for k in SASS_SHOWN)}
+        found[fn] = shown
+        bulk = sum(c for op, c in shown.items() if SASS_BULK in op)
+        cbar = sum(c for op, c in shown.items() if SASS_CLUSTER_BAR in op)
+        print(f"cuobjdump -sass fused_decode {fn}: {shown}", flush=True)
+        check(bulk > 0, f"{fn}: no bulk copy ({SASS_BULK}) in its SASS")
+        check(cbar > 0 or "Lb1E" not in fn,
+              f"{fn}: no cluster barrier ({SASS_CLUSTER_BAR}) in its SASS")
+    check(len(found) == 8, f"qkv_cluster_kernel instantiations: {list(found)}")
+    return found
 
 
 def tc_bound_ms(nbytes, flops, dtype):
@@ -434,13 +495,24 @@ def rounding_probe_check(torch, dev, u, heads, n):
           flush=True)
 
 
-def kernel_checks(torch, dev):
+def launch_floor(torch):
+    """The device time of a near-empty launch (``torch.cuda._sleep(1)``)
+    by :func:`time_ms`: the floor that rows at decode shapes are read
+    against. Not a kernel of the port."""
+    ms = time_ms(lambda i: torch.cuda._sleep(1))[0]
+    print(f"launch floor: torch.cuda._sleep(1) ms {ms:.5f}", flush=True)
+    return ms
+
+
+def kernel_checks(torch, dev, floor_ms):
     """Phase 2: every kernel against its plain version at full-width
     shapes. Returns every measured row; the first row of each kernel is
-    its entry in the kernels line."""
+    its entry in the kernels line. ``floor_ms`` is the launch floor
+    (:func:`launch_floor`), printed beside K2 and K5a."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import _build
     from mxnet_tpu_torch.ops.kernels import fused_decode as kfd
     from mxnet_tpu_torch.ops.kernels import layer_norm as kln
     from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
@@ -454,22 +526,64 @@ def kernel_checks(torch, dev):
     rows = []
     u, heads, d, bs = 768, 12, 64, 16
 
-    # K2: decode rows (8) and the largest prefill bucket (1024) ----------
-    for n in (8, 1024):
+    # K2: decode rows (8), the largest prefill bucket (1024) and the train
+    # step (8192), each on the warp route; the block route beside it,
+    # through its library entry, checked and timed in the same run -----
+    lib = _build.load("layer_norm")
+
+    def ln_block(x, gam, bet):
+        with torch.cuda.device(x.device):
+            out, err = kln.ln_launch(lib, "block", x, gam, bet, 1e-5,
+                                     _build.stream_ptr(x.device))
+        _build.check(err, "layer_norm_fwd block route")
+        return out
+
+    def ln_err(got, want):
+        return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+    for n in (8, 1024, 8192):
         x = randn(n, u, scale=2.0) + 0.5
         gam, bet = randn(u, scale=0.1) + 1.0, randn(u, scale=0.1)
-        y, mean, rstd = kln.fused_layer_norm(x, gam, bet, 1e-5)
-        py, pmean, prstd = kln.layer_norm_plain(x, gam, bet, 1e-5)
-        err = max((y - py).abs().max().item(),
-                  (mean - pmean).abs().max().item(),
-                  (rstd - prstd).abs().max().item())
-        rows.append(measure(
-            "layer_norm_fwd", f"({n}, {u}) f32", err,
-            1e-5,               # f32 sums of 768 terms in another order
+        check(kln.ln_route(x, gam, bet) == "warp",
+              f"layer_norm_fwd ({n}, {u}): not on the warp route")
+        want = kln.layer_norm_plain(x, gam, bet, 1e-5)
+        err = ln_err(kln.fused_layer_norm(x, gam, bet, 1e-5), want)
+        block_err = ln_err(ln_block(x, gam, bet), want)
+        # f32 sums of 768 terms in another order
+        check(block_err <= 1e-5, f"layer_norm_fwd ({n}, {u}) block route: "
+              f"max err {block_err}")
+        row = measure(
+            "layer_norm_fwd", f"({n}, {u}) f32", err, 1e-5,
             lambda i: kln.fused_layer_norm(x, gam, bet, 1e-5),
             lambda i: kln.layer_norm_plain(x, gam, bet, 1e-5),
             lambda i: F.layer_norm(x, (u,), gam, bet, 1e-5),
-            4 * (2 * n * u + 2 * u + 2 * n), 8 * n * u))
+            4 * (2 * n * u + 2 * u + 2 * n), 8 * n * u)
+        # in turns: warp (above), block, block, warp
+        block_ms = [time_ms(lambda i: ln_block(x, gam, bet))[0]
+                    for _ in range(2)]
+        warp_ms = time_ms(lambda i: kln.fused_layer_norm(x, gam, bet,
+                                                         1e-5))[0]
+        row.update(block_ms=block_ms, warp_ms=[row["ms"], warp_ms],
+                   block_err=block_err, launch_floor_ms=floor_ms)
+        print(f"layer_norm_fwd ({n}, {u}) f32: warp route ms {row['ms']:.5f}, "
+              f"{warp_ms:.5f}; block route ms {block_ms[0]:.5f}, "
+              f"{block_ms[1]:.5f} (max_abs_err {block_err:.3e}); launch "
+              f"floor {floor_ms:.5f}", flush=True)
+        rows.append(row)
+    # rows the warp route does not take: wider than 1024, or no multiple
+    # of 16 bytes; through the wrapper, on the block route
+    for d_ in (4096, 770):
+        x = randn(8, d_, scale=2.0) + 0.5
+        gam, bet = randn(d_, scale=0.1) + 1.0, randn(d_, scale=0.1)
+        check(kln.ln_route(x, gam, bet) == "block",
+              f"layer_norm_fwd (8, {d_}): not on the block route")
+        err = ln_err(kln.fused_layer_norm(x, gam, bet, 1e-5),
+                     kln.layer_norm_plain(x, gam, bet, 1e-5))
+        print(f"layer_norm_fwd (8, {d_}) f32, block route: max_abs_err "
+              f"{err:.3e} (tol 1e-5)", flush=True)
+        check(err <= 1e-5, f"layer_norm_fwd (8, {d_}): max err {err}")
+        rows.append({"name": "layer_norm_fwd", "case": f"(8, {d_}) f32 block "
+                     "route", "max_abs_err": err, "tol": 1e-5})
 
     # K4: 8 lanes, lengths spread over 1..2048, and the decode step's
     # mid-decode lengths (the served batch's prompts + 16) ---------------
@@ -525,11 +639,22 @@ def kernel_checks(torch, dev):
 
     # K5a / K5b: 8 decode tokens, one weight set per layer ----------------
     n, n_sets = 8, 12
+    cl = {str(dt)[6:]: kfd.qkv_cluster(u, heads, dt)
+          for dt in (torch.float32, torch.bfloat16)}
+    print(f"qkv_project: cluster size at U {u} H {heads} (0: the head "
+          f"route) {cl}", flush=True)
+    check(all(c > 0 for c in cl.values()), f"qkv_project: U {u} H {heads} "
+          f"not on the cluster route: {cl}")
     x = randn(n, u)
     wq = [randn(3 * u, u, scale=0.02) for _ in range(n_sets)]
     bq = [randn(3 * u, scale=0.02) for _ in range(n_sets)]
     q5, k5, v5 = kfd.fused_qkv_project(x, wq[0], bq[0], heads=heads,
                                        store_dtype=torch.int8)
+    # fixed-order sums and an order-free amax: a second run, the same bits
+    again = kfd.fused_qkv_project(x, wq[0], bq[0], heads=heads,
+                                  store_dtype=torch.int8)
+    check(all(torch.equal(a_, b_) for a_, b_ in zip((q5, k5, v5), again)),
+          "qkv_project: two runs differ")
     pq, pk, pv = kfd.qkv_project_plain(x, wq[0], bq[0], heads, torch.int8)
     q_err = (q5 - pq).abs().max().item()
     check(q_err <= 1e-4, f"qkv_project: q differs by {q_err}")
@@ -547,7 +672,38 @@ def kernel_checks(torch, dev):
         lambda i: kfd.qkv_project_plain(x, wq[i], bq[i], heads, torch.int8),
         None, 4 * (3 * u * u + 3 * u + 2 * n * u) + 2 * n * heads * (d + 4),
         2 * n * 3 * u * u, n_inputs=n_sets))
+    rows[-1].update(cluster=cl["float32"], launch_floor_ms=floor_ms,
+                    two_runs_bitwise=True)
+    print(f"qkv_project N{n} U{u}: cluster {cl['float32']}, ms "
+          f"{rows[-1]['ms']:.5f} against its bound {rows[-1]['bound_ms']:.6f} "
+          f"and the launch floor {floor_ms:.5f}; two runs bitwise equal",
+          flush=True)
     del wq, bq
+    # N 20: three token chunks, the last one ragged; then a width whose
+    # slab does not fit a cluster (U 4096, D 128: the head route). Inputs
+    # are small multiples of 1/4 and 1/64, so every sum is exact in f32
+    # in any order and the kernel's q and int8 K/V rows must equal the
+    # plain version's byte for byte
+    def dyadic(*shape, denom):
+        return torch.randint(-4, 5, shape, generator=g, device=dev) / denom
+
+    for n_, u_, h_ in ((20, u, heads), (8, 4096, 32)):
+        xx, ww, bb = (dyadic(n_, u_, denom=4), dyadic(3 * u_, u_, denom=64),
+                      dyadic(3 * u_, denom=4))
+        c_ = kfd.qkv_cluster(u_, h_, torch.float32)
+        check((c_ > 0) == (u_ == u), f"qkv_project U {u_}: cluster {c_}")
+        got = kfd.fused_qkv_project(xx, ww, bb, heads=h_,
+                                    store_dtype=torch.int8)
+        want = kfd.qkv_project_plain(xx, ww, bb, h_, torch.int8)
+        case = (f"N{n_} U{u_} H{h_} int8 store, dyadic inputs, "
+                + (f"cluster {c_}" if c_ else "head route"))
+        off = [int((a_ != b_).sum().item()) for a_, b_ in zip(got, want)]
+        print(f"qkv_project {case}: q, K and V rows differing from the "
+              f"plain version in {off} elements (must be 0)", flush=True)
+        check(off == [0, 0, 0], f"qkv_project {case}: {off} elements differ")
+        rows.append({"name": "qkv_project", "case": case, "max_abs_err": 0.0,
+                     "elements_off": off})
+        del xx, ww, bb, got, want
 
     a = randn(n, u)
     wo = [randn(u, u, scale=0.02) for _ in range(n_sets)]
@@ -1668,6 +1824,27 @@ TRIALS = (
          "flash_fwd_tc_kernel",
          "__launch_bounds__(FA_THREADS, DP <= 64 ? 4 : 1)\n"
          "flash_fwd_tc_kernel")]),
+    ("fused_decode", "K5a cluster of 2", [
+        ("constexpr int QKV_CLUSTER = 3;", "constexpr int QKV_CLUSTER = 2;")]),
+    ("fused_decode", "K5a cluster of 3, 384 threads (the source)", []),
+    ("fused_decode", "K5a cluster of 4", [
+        ("constexpr int QKV_CLUSTER = 3;", "constexpr int QKV_CLUSTER = 4;")]),
+    ("fused_decode", "K5a cluster of 8", [
+        ("constexpr int QKV_CLUSTER = 3;", "constexpr int QKV_CLUSTER = 8;")]),
+    ("fused_decode", "K5a cluster of 3, 256 threads", [
+        ("constexpr int CL_THREADS = 384;", "constexpr int CL_THREADS = 256;")]),
+    ("fused_decode", "K5a cluster of 3, the slab in one bulk copy", [
+        ("constexpr int W_CHUNKS = 4;", "constexpr int W_CHUNKS = 1;")]),
+    # diagnostic builds (results not checked): the launch and scheduling
+    # of the clusters alone, and the copies, waits and epilogue without
+    # the products
+    ("fused_decode", "diagnostic: K5a returning at entry", [
+        ("  cg::cluster_group cluster = cg::this_cluster();\n",
+         "  if (n_tok >= 0) return;\n"
+         "  cg::cluster_group cluster = cg::this_cluster();\n")]),
+    ("fused_decode", "diagnostic: K5a without the products", [
+        ("for (int j = lane + 32 * p; j < nvec; j += 32 * parts) {",
+         "for (int j = lane + 32 * p; j < 0; j += 32 * parts) {")]),
 )
 
 
@@ -1709,12 +1886,13 @@ def trial_builds(trials):
 
 
 def trial_phase(torch, dev):
-    """``--trials``: the K4 span and K1 forward's tiling, each build timed
-    twice, in turns, at the shapes the main paths give them, after a
-    check against the plain version."""
+    """``--trials``: the K4 span, K1 forward's tiling and K5a's cluster
+    size, each build timed twice, in turns, at the shapes the main paths
+    give them, after a check against the plain version."""
     from mxnet_tpu_torch.ops import nn as tnn
     from mxnet_tpu_torch.ops.kernels import _build
     from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.ops.kernels import fused_decode as kfd
     from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
 
     libs, logs = trial_builds(TRIALS)
@@ -1744,6 +1922,12 @@ def trial_phase(torch, dev):
     b, l = 8, 1024
     qkv = {dt: [torch.randn(b, heads, l, d, generator=g, device=dev).to(dt)
                 for _ in range(3)] for dt in (torch.float32, torch.bfloat16)}
+    # K5a at the decode step's shape, 12 weight sets (cold in L2)
+    u = heads * d
+    x5 = torch.randn(8, u, generator=g, device=dev)
+    w5 = [(0.02 * torch.randn(3 * u, u, generator=g, device=dev),
+           0.02 * torch.randn(3 * u, generator=g, device=dev))
+          for _ in range(12)]
     saved = dict(_build._libs)
     res = []
     try:
@@ -1766,6 +1950,24 @@ def trial_phase(torch, dev):
                             lambda i: kpa.paged_attention_kernel(
                                 q, ps[i][0], ps[i][1], table, lengths),
                             len(ps))[0]
+                elif name == "fused_decode":
+                    c = kfd.qkv_cluster(u, heads, torch.float32)
+                    if not label.startswith("diagnostic"):
+                        with torch.no_grad():
+                            got = kfd.fused_qkv_project(
+                                x5, *w5[0], heads=heads,
+                                store_dtype=torch.int8)
+                            want = kfd.qkv_project_plain(x5, *w5[0], heads,
+                                                         torch.int8)
+                        err = (got[0] - want[0]).abs().max().item()
+                        check(err <= 1e-4, f"trial {label}: q err {err}")
+                        int8_rows_diff(torch, got[1:], want[1:],
+                                       f"trial {label}")
+                    row["cluster"] = c
+                    row["ms"][f"N8 U{u} int8, cluster {c}"] = time_ms(
+                        lambda i: kfd.fused_qkv_project(
+                            x5, *w5[i], heads=heads,
+                            store_dtype=torch.int8), len(w5))[0]
                 else:
                     for dt, (qq, kk, vv) in qkv.items():
                         with torch.no_grad():
@@ -1844,10 +2046,13 @@ def main(argv):
         check(len(got) == n and all(got.values()),
               f"{src}: instantiations without HMMA: {got}")
         results["sass_hmma"][src] = got
+    # K5a's cluster route: bulk copies, and cluster barriers in int8
+    results["sass_k5a"] = k5a_sass_check(_build._lib_path("fused_decode"))
     if "--trials" in argv:
         results["trials"] = trial_phase(torch, dev)
     # -- phase 2: kernels against their plain versions ----------------------
-    rows = kernel_checks(torch, dev)
+    results["launch_floor_ms"] = launch_floor(torch)
+    rows = kernel_checks(torch, dev, results["launch_floor_ms"])
     results["paged_edges"] = paged_edge_checks(torch, dev)
     results["variants"] = variant_checks(torch, dev)
     train_rows, results["train_variants"], results["attention"] = \

@@ -97,3 +97,87 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ---- 16-byte vectors -------------------------------------------------------
+
+// 16 bytes at p (8 bf16/f16 or 4 f32 values) widened to f32
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&out)[16 / sizeof(T)]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < (int)(16 / sizeof(T)); ++j) out[j] = to_f32(e[j]);
+}
+
+// f32 values rounded to T and written as one 16-byte store
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float (&v)[16 / sizeof(T)]) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < (int)(16 / sizeof(T)); ++j) e[j] = from_f32<T>(v[j]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// ---- bulk copies (TMA without a tensor map) and mbarriers -------------------
+//
+// One thread arms an mbarrier with the bytes it expects and issues
+// `cp.async.bulk` copies of contiguous, 16-byte-aligned runs of global
+// memory into the block's shared memory; the copy engine completes the
+// barrier's transactions, and the threads that need the data wait on the
+// barrier's phase parity.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// makes initialised barriers visible to the copy engine and the cluster
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival, and `bytes` more transaction bytes for the current phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the phase of the given parity has completed. A phase that
+// never completes (a byte count that disagrees with the copies) traps
+// after about 2^26 polls, each of which may suspend the thread for a
+// while, so that a fault ends the launch with an error instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+// `bytes` (a multiple of 16) from global src to the block's own shared
+// dst, both 16-byte aligned; completes `bar`'s transactions
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// orders this block's earlier generic accesses of shared memory before
+// later bulk copies into it
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}

@@ -11,18 +11,47 @@
 //
 // Bound on this card: bytes. At decode (N = 8 tokens) the products are
 // rank-8 updates whose cost is reading the weights once: 7.08 MB of f32
-// W_qkv and 2.36 MB of W_out per layer at units 768. Design: a warp
-// computes one output feature for up to 8 tokens at a time, streaming
-// that weight row with 16-byte loads (units * itemsize % 16 == 0 is
-// required); the activations are re-read from L1. W_qkv (3U, U) is read
-// row-major as it is — output feature h*D + d of Q/K/V is row
+// W_qkv and 2.36 MB of W_out per layer at units 768. W_qkv (3U, U) is
+// read row-major as it is — output feature h*D + d of Q/K/V is row
 // {0, U, 2U} + h*D + d — with no per-step transposed copy (the TPU
-// wrapper re-slabs w.T on every call).
-// K5a runs one block per (Q|K|V, head) so that a block holds all D
-// features of a (token, head) for the int8 amax. Rounding follows
-// jnp.round (half to even, rintf) on t / scale — a divide, never a
-// multiply by the reciprocal of the scale.
+// wrapper re-slabs w.T on every call). units * itemsize % 16 == 0 is
+// required.
+//
+// K5a, the cluster route (qkv_cluster_kernel). The D weight rows of one
+// (Q|K|V, head) are contiguous, so a thread-block cluster of C blocks
+// owns them, each block about D/C rows (D 64, C 3: 108 blocks, at most
+// one an SM, of 21 or 22 rows, 66 KB of f32). One thread brings the chunk of up to 8 tokens of
+// x into shared memory by a bulk copy (TMA without a tensor map; an L2
+// hit: every block reads it), then the block's slab by bulk copies in up
+// to four chunks of whole row groups, each on an mbarrier of its own.
+// The products are f32 FMA from shared memory: a warp multiplies 4 rows
+// by 8 tokens over a share of U and sums its 32 accumulators across the
+// lanes in 31 shuffles; the shares of a row are added in shared memory in
+// a fixed order, so two runs give the same bits. For int8 stores each block takes its partial amax per token over
+// its rows and writes it into its slot of every block of the cluster
+// through distributed shared memory; after one cluster barrier every
+// block takes the max of the C partials (max is order-free: the scale is
+// the same bits for the same y whatever C), quantizes its own features,
+// and rank 0 writes the scale's bytes. Every remote access is a write
+// made before that barrier, so no second barrier is needed before a
+// block exits; the partials are double-buffered by token chunk. Q
+// clusters and float stores need no barrier. Any N runs in chunks of 8
+// tokens: the slab stays resident and only x is copied again, its
+// mbarrier's phase advancing once a chunk. Rounding follows jnp.round
+// (half to even, rintf) on t / scale — a divide, never a multiply by
+// the reciprocal of the scale.
+//
+// K5a, the head route (qkv_head_kernel): where a cluster's slab and x
+// chunk do not fit in shared memory even at C 8 (f32 U 4096 at D 128,
+// for example), one block per (Q|K|V, head) streams the weight rows from
+// device memory, a warp per output feature.
+// K5b (out_kernel): a warp per output feature streams its weight row with
+// 16-byte loads; the activations are re-read from L1.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -31,12 +60,238 @@ constexpr int QKV_THREADS = 512;
 constexpr int OUT_THREADS = 256;
 constexpr int MAX_D = 256;
 
-template <typename T>
-__device__ __forceinline__ void load16(const T* p, float (&out)[16 / sizeof(T)]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
+// the cluster route
+constexpr int QKV_CLUSTER = 3;   // blocks per (Q|K|V, head); raised to fit
+constexpr int CL_THREADS = 384;
+constexpr int CL_WARPS = CL_THREADS / 32;
+constexpr int RW = 4;            // rows a warp multiplies at once
+constexpr int RMAX = 64;         // rows a block may own
+constexpr int W_CHUNKS = 4;      // bulk copies (and mbarriers) of the slab
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+constexpr int SMEM_LIMIT = 232448;  // shared memory an H100 block may use
+// shared memory before the slab: W_CHUNKS + 1 mbarriers (64 B), the
+// per-token scale (NC floats, 64 B with padding), the bias (RMAX floats),
+// the cluster's per-token amax partials (2 x MAX_CLUSTER x NC floats), y
+// (NC x RMAX floats) and the warps' partial sums (at most RMAX x NC)
+constexpr int CL_FIXED = 128 + RMAX * 4 + 2 * MAX_CLUSTER * NC * 4 +
+                         2 * NC * RMAX * 4;
+static_assert(RW * NC == 32, "a warp's accumulators are one per lane");
+static_assert(CL_WARPS >= NC, "a warp per token takes the amax");
+static_assert(W_CHUNKS * 8 + 8 <= 64, "the mbarriers fit in 64 bytes");
+static_assert(CL_FIXED % 16 == 0, "the slab starts 16-byte aligned");
+
+// The cluster size of the cluster route for (D, U, itemsize), or 0 where
+// the head route takes the shape: QKV_CLUSTER (at most D), doubled up to
+// 8 until a block owns at most RMAX rows and its slab and x chunk fit.
+int cluster_blocks(int d, int u, int itemsize) {
+  int c = QKV_CLUSTER < d ? QKV_CLUSTER : d;
+  for (;;) {
+    const int rows = (d + c - 1) / c;
+    const long long smem = CL_FIXED + (long long)(rows + NC) * u * itemsize;
+    if (rows <= RMAX && smem <= SMEM_LIMIT) return c;
+    if (c >= MAX_CLUSTER || c >= d) return 0;
+    c = 2 * c < d ? 2 * c : d;
+    if (c > MAX_CLUSTER) c = MAX_CLUSTER;
+  }
+}
+
+// One step of transpose_sum: lanes with bit O set keep a[O..2O), the
+// others a[0..O), each adding the partner lane's copy (a template, so
+// that every index is a constant and `a` stays in registers)
+template <int O>
+__device__ __forceinline__ void transpose_step(float (&a)[32], int lane) {
+  const bool hi = (lane & O) != 0;
 #pragma unroll
-  for (int j = 0; j < (int)(16 / sizeof(T)); ++j) out[j] = to_f32(e[j]);
+  for (int i = 0; i < O; ++i) {
+    const float send = hi ? a[i] : a[i + O];
+    const float keep = hi ? a[i + O] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// a[i] summed over the warp; lane L gets the sum of a[L]. Each step keeps
+// half of the values and adds the partner lane's copy of them: 31
+// shuffles in place of 32 butterfly sums (160).
+__device__ __forceinline__ float transpose_sum(float (&a)[32], int lane) {
+  transpose_step<16>(a, lane);
+  transpose_step<8>(a, lane);
+  transpose_step<4>(a, lane);
+  transpose_step<2>(a, lane);
+  transpose_step<1>(a, lane);
+  return a[0];
+}
+
+template <typename T, typename S, bool QUANT>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+qkv_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ bias, T* __restrict__ q_out,
+                   S* __restrict__ k_out, S* __restrict__ v_out, int n_tok,
+                   int u, int heads, int d, int dp) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* scale_s = reinterpret_cast<float*>(smem + 64);   // [NC]
+  float* bias_s = reinterpret_cast<float*>(smem + 128);   // [RMAX]
+  float* amax_s = bias_s + RMAX;                  // [2][MAX_CLUSTER][NC]
+  float* y_s = amax_s + 2 * MAX_CLUSTER * NC;             // [NC][RMAX]
+  float* part_s = y_s + NC * RMAX;                        // [parts*rows][NC]
+  T* w_s = reinterpret_cast<T*>(smem + CL_FIXED);         // [rows][u]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int grp = blockIdx.x / c;          // the same for the whole cluster
+  const int which = grp / heads;           // 0 = Q, 1 = K, 2 = V
+  const int h = grp % heads;
+  const int f0 = rank * d / c;             // this block's first feature
+  const int rows = (rank + 1) * d / c - f0;
+  T* x_s = w_s + (size_t)rows * u;         // [NC][u]
+  const int64_t o0 = (int64_t)which * u + (int64_t)h * d + f0;  // W row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = u / V;                  // 16-byte vectors a row
+  const int groups = (rows + RW - 1) / RW;
+  // warps that split one row group's U-sum (each warp one unit of work)
+  const int parts = groups >= CL_WARPS ? 1 : CL_WARPS / groups;
+  // the slab is copied in chunks of whole row groups, one mbarrier each
+  const int chunk_groups = (groups + W_CHUNKS - 1) / W_CHUNKS;
+  const int n_chunks = (groups + chunk_groups - 1) / chunk_groups;
+  const uint32_t bar0 = smem_u32(smem);    // W chunk k at bar0 + 8k
+  const uint32_t xbar = bar0 + 8 * W_CHUNKS;
+  // the bias of row threadIdx.x, loaded now and used after the products
+  const float bias_r = bias && (int)threadIdx.x < rows
+                           ? to_f32(bias[o0 + threadIdx.x]) : 0.0f;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k <= W_CHUNKS; ++k) mbar_init(bar0 + 8 * k, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  for (int n0 = 0, it = 0; n0 < n_tok; n0 += NC, ++it) {
+    const int nc = min(NC, n_tok - n0);
+    if (threadIdx.x == 0) {
+      // the chunk of x, then (the first chunk) the slab in row chunks
+      fence_proxy_async_smem();   // the last chunk's reads of x_s come first
+      const uint32_t bytes = (uint32_t)((size_t)nc * u * sizeof(T));
+      mbar_expect_tx(xbar, bytes);
+      bulk_g2s(x_s, x + (int64_t)n0 * u, bytes, xbar);
+      for (int k = 0; it == 0 && k < n_chunks; ++k) {
+        const int r0 = k * chunk_groups * RW;
+        const int r1 = min(rows, r0 + chunk_groups * RW);
+        const uint32_t wb = (uint32_t)((size_t)(r1 - r0) * u * sizeof(T));
+        mbar_expect_tx(bar0 + 8 * k, wb);
+        bulk_g2s(w_s + (size_t)r0 * u, w + (o0 + r0) * u, wb, bar0 + 8 * k);
+      }
+    }
+    mbar_wait(xbar, it & 1);
+    for (int unit = warp; unit < groups * parts; unit += CL_WARPS) {
+      const int g = unit / parts, p = unit % parts;
+      const int r0 = g * RW;
+      float acc[RW * NC];
+#pragma unroll
+      for (int i = 0; i < RW * NC; ++i) acc[i] = 0.0f;
+      mbar_wait(bar0 + 8 * (g / chunk_groups), 0);
+      for (int j = lane + 32 * p; j < nvec; j += 32 * parts) {
+        float wv[RW][V];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          if (r0 + r < rows) {
+            load16(w_s + (size_t)(r0 + r) * u + j * V, wv[r]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) wv[r][e] = 0.0f;
+          }
+        }
+        // every token's vector first, so that the loads issue together
+        float xv[NC][V];
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          if (n < nc) {
+            load16(x_s + (size_t)n * u + j * V, xv[n]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) xv[n][e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int r = 0; r < RW; ++r)
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[r * NC + n] = fmaf(xv[n][e], wv[r][e], acc[r * NC + n]);
+      }
+      const float sum = transpose_sum(acc, lane);  // row lane / NC, token lane % NC
+      const int r = r0 + lane / NC, n = lane % NC;
+      if (r < rows && n < nc) part_s[(p * rows + r) * NC + n] = sum;
+    }
+    if ((int)threadIdx.x < rows) bias_s[threadIdx.x] = bias_r;
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < rows * nc; idx += CL_THREADS) {
+      const int r = idx / nc, n = idx % nc;
+      float s = 0.0f;
+      for (int p = 0; p < parts; ++p) s += part_s[(p * rows + r) * NC + n];
+      y_s[n * RMAX + r] = s + bias_s[r];
+    }
+    __syncthreads();
+    if (which == 0) {
+      for (int idx = threadIdx.x; idx < nc * rows; idx += CL_THREADS) {
+        const int n = idx / rows, r = idx % rows;
+        q_out[((int64_t)(n0 + n) * heads + h) * d + f0 + r] =
+            from_f32<T>(y_s[n * RMAX + r]);
+      }
+    } else {
+      S* dst = which == 1 ? k_out : v_out;
+      if constexpr (QUANT) {
+        // this chunk's partials, in the buffer of its parity: a block
+        // reads buffer it & 1 before it reaches the next chunk's cluster
+        // barrier, and no block writes it again before that barrier
+        float* amax_it = amax_s + (it & 1) * MAX_CLUSTER * NC;
+        if (warp < nc) {
+          // this block's amax of token `warp`, into slot `rank` of every
+          // block of the cluster (distributed shared memory)
+          float m = 0.0f;
+          for (int r = lane; r < rows; r += 32)
+            m = fmaxf(m, fabsf(y_s[warp * RMAX + r]));
+          m = warp_max(m);
+          if (lane < c)
+            *cluster.map_shared_rank(amax_it + rank * NC + warp, lane) = m;
+        }
+        // every partial has arrived in every block; the remote writes are
+        // done before any block passes, so any block may then exit
+        cluster.sync();
+        if (warp < nc) {
+          float m = lane < c ? amax_it[lane * NC + warp] : 0.0f;
+          m = warp_max(m);
+          // amax * f32(1/127): the reference runs compiled, where XLA
+          // folds its divide by the constant 127 into this multiply
+          if (lane == 0) scale_s[warp] = fmaxf(m, 1e-6f) * (1.0f / 127.0f);
+        }
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < nc * rows; idx += CL_THREADS) {
+          const int n = idx / rows, r = idx % rows;
+          int8_t* row = reinterpret_cast<int8_t*>(dst) +
+                        ((int64_t)(n0 + n) * heads + h) * dp;
+          const float qv = fminf(
+              fmaxf(rintf(y_s[n * RMAX + r] / scale_s[n]), -127.0f), 127.0f);
+          row[f0 + r] = (int8_t)qv;
+        }
+        if (rank == 0 && threadIdx.x < 4 * nc) {
+          // bitcast of the f32 scale, byte b of its little-endian form
+          const int n = threadIdx.x / 4, b = threadIdx.x % 4;
+          const unsigned int bits = __float_as_uint(scale_s[n]);
+          reinterpret_cast<int8_t*>(dst)[((int64_t)(n0 + n) * heads + h) * dp
+                                         + d + b] =
+              (int8_t)((bits >> (8 * b)) & 0xffu);
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < nc * rows; idx += CL_THREADS) {
+          const int n = idx / rows, r = idx % rows;
+          dst[((int64_t)(n0 + n) * heads + h) * dp + f0 + r] =
+              from_f32<S>(y_s[n * RMAX + r]);
+        }
+      }
+    }
+    __syncthreads();  // x_s, part_s, y_s and scale_s are rewritten next chunk
+  }
 }
 
 // One warp: acc[n] = sum_i x[n, i] * w_row[i] for n < nc; every lane ends
@@ -77,10 +332,10 @@ __device__ __forceinline__ float pick_lane(const float (&acc)[NC], int lane) {
 
 template <typename T, typename S, bool QUANT>
 __global__ void __launch_bounds__(QKV_THREADS)
-qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           const T* __restrict__ bias, T* __restrict__ q_out,
-           S* __restrict__ k_out, S* __restrict__ v_out, int n_tok, int u,
-           int heads, int d, int dp) {
+qkv_head_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                const T* __restrict__ bias, T* __restrict__ q_out,
+                S* __restrict__ k_out, S* __restrict__ v_out, int n_tok,
+                int u, int heads, int d, int dp) {
   __shared__ float y_s[NC][MAX_D];
   const int which = blockIdx.x / heads;  // 0 = Q, 1 = K, 2 = V
   const int h = blockIdx.x % heads;
@@ -108,8 +363,7 @@ qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
           float amax = 0.0f;
           for (int f = lane; f < d; f += 32) amax = fmaxf(amax, fabsf(y_s[n][f]));
           amax = warp_max(amax);
-          // amax * f32(1/127): the reference runs compiled, where XLA
-          // folds its divide by the constant 127 into this multiply
+          // amax * f32(1/127), as the cluster route
           const float scale = fmaxf(amax, 1e-6f) * (1.0f / 127.0f);
           int8_t* row = reinterpret_cast<int8_t*>(dst) +
                         ((int64_t)(n0 + n) * heads + h) * dp;
@@ -154,13 +408,43 @@ out_kernel(const T* __restrict__ a, const T* __restrict__ w,
 }
 
 template <typename T, typename S, bool QUANT>
-void launch_qkv(const void* x, const void* w, const void* b, void* q, void* k,
-                void* v, int n, int u, int heads, int d, int dp,
-                cudaStream_t s) {
-  qkv_kernel<T, S, QUANT><<<3 * heads, QKV_THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(q), static_cast<S*>(k),
-      static_cast<S*>(v), n, u, heads, d, dp);
+cudaError_t launch_qkv(const void* x, const void* w, const void* b, void* q,
+                       void* k, void* v, int n, int u, int heads, int d,
+                       int dp, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* bt = static_cast<const T*>(b);
+  T* qt = static_cast<T*>(q);
+  S* kt = static_cast<S*>(k);
+  S* vt = static_cast<S*>(v);
+  const int c = cluster_blocks(d, u, (int)sizeof(T));
+  if (c == 0) {
+    qkv_head_kernel<T, S, QUANT><<<3 * heads, QKV_THREADS, 0, s>>>(
+        xt, wt, bt, qt, kt, vt, n, u, heads, d, dp);
+    return cudaGetLastError();
+  }
+  auto kernel = qkv_cluster_kernel<T, S, QUANT>;
+  const size_t smem =
+      CL_FIXED + (size_t)((d + c - 1) / c + NC) * u * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(3 * heads * c);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, xt, wt, bt, qt, kt, vt, n, u, heads,
+                           d, dp);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -168,18 +452,36 @@ int dispatch_store(int store_dtype, const void* x, const void* w,
                    const void* b, void* q, void* k, void* v, int n, int u,
                    int heads, int d, int dp, cudaStream_t s) {
   switch (store_dtype) {
-    case kI8: launch_qkv<T, int8_t, true>(x, w, b, q, k, v, n, u, heads, d, dp, s); break;
-    case kF32: launch_qkv<T, float, false>(x, w, b, q, k, v, n, u, heads, d, dp, s); break;
+    case kI8:
+      return (int)launch_qkv<T, int8_t, true>(x, w, b, q, k, v, n, u, heads,
+                                              d, dp, s);
+    case kF32:
+      return (int)launch_qkv<T, float, false>(x, w, b, q, k, v, n, u, heads,
+                                              d, dp, s);
     case kBF16:
-      launch_qkv<T, __nv_bfloat16, false>(x, w, b, q, k, v, n, u, heads, d, dp, s);
-      break;
-    case kF16: launch_qkv<T, __half, false>(x, w, b, q, k, v, n, u, heads, d, dp, s); break;
+      return (int)launch_qkv<T, __nv_bfloat16, false>(x, w, b, q, k, v, n, u,
+                                                      heads, d, dp, s);
+    case kF16:
+      return (int)launch_qkv<T, __half, false>(x, w, b, q, k, v, n, u, heads,
+                                               d, dp, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return 0;
+}
+
+int itemsize(int dtype) {
+  return dtype == kF32 ? 4 : (dtype == kBF16 || dtype == kF16) ? 2 : 0;
 }
 
 }  // namespace
+
+// K5a's cluster size for (units, heads, activation dtype): C of the
+// cluster route, 0 where the head route takes the shape, -1 for a shape
+// the entry refuses.
+extern "C" int mxt_qkv_cluster(int u, int heads, int dtype) {
+  if (heads <= 0 || u % heads || u / heads > MAX_D || itemsize(dtype) == 0)
+    return -1;
+  return cluster_blocks(u / heads, u, itemsize(dtype));
+}
 
 extern "C" int mxt_qkv_project(const void* x, const void* w_qkv,
                                const void* b_qkv, void* q, void* k_store,
@@ -190,21 +492,16 @@ extern "C" int mxt_qkv_project(const void* x, const void* w_qkv,
   if (heads <= 0 || u % heads || d > MAX_D) return (int)cudaErrorInvalidValue;
   const int dp = store_dtype == kI8 ? d + 4 : d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
   switch (dtype) {
     case kF32:
-      err = dispatch_store<float>(store_dtype, x, w_qkv, b_qkv, q, k_store,
-                                  v_store, n, u, heads, d, dp, s);
-      break;
+      return dispatch_store<float>(store_dtype, x, w_qkv, b_qkv, q, k_store,
+                                   v_store, n, u, heads, d, dp, s);
     case kBF16:
-      err = dispatch_store<__nv_bfloat16>(store_dtype, x, w_qkv, b_qkv, q,
-                                          k_store, v_store, n, u, heads, d,
-                                          dp, s);
-      break;
+      return dispatch_store<__nv_bfloat16>(store_dtype, x, w_qkv, b_qkv, q,
+                                           k_store, v_store, n, u, heads, d,
+                                           dp, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err) return err;
-  return (int)cudaGetLastError();
 }
 
 extern "C" int mxt_out_project(const void* a, const void* w_out,

@@ -31,8 +31,11 @@ class Trainer:
     :class:`~.parameter.Parameter`, deferred ones included: they are read
     at each step) or a name -> ``nn.Parameter`` dict
     (``dict(net.named_parameters())``); ``optimizer`` a registered name
-    or an :class:`~mxnet_tpu_torch.optimizer.Optimizer`. A Parameter's
-    ``lr_mult`` and ``wd_mult`` reach the optimizer by name."""
+    or an :class:`~mxnet_tpu_torch.optimizer.Optimizer`. As in the
+    reference, the Trainer gives the optimizer the parameters' names
+    (``idx2name``) and nothing else: a Parameter's ``lr_mult`` and
+    ``wd_mult`` do not reach it, and per-parameter multipliers are set on
+    the optimizer by name (``set_lr_mult``, ``set_wd_mult``)."""
 
     def __init__(self, params, optimizer, optimizer_params=None):
         if not isinstance(params, dict):
@@ -48,13 +51,12 @@ class Trainer:
         self._optimizer = opt_mod.create(optimizer,
                                          **(optimizer_params or {}))
         self._optimizer.idx2name = dict(enumerate(self._param_names))
-        named = list(zip(self._param_names, self._params))
-        self._optimizer.set_lr_mult({n: p.lr_mult for n, p in named
-                                     if p.lr_mult != 1.0})
-        self._optimizer.set_wd_mult({n: p.wd_mult for n, p in named
-                                     if p.wd_mult != 1.0})
         self._scale = self._optimizer.rescale_grad
         self._states: Dict[int, tuple] = {}
+
+    @property
+    def optimizer(self):
+        return self._optimizer
 
     @property
     def learning_rate(self):

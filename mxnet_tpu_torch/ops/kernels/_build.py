@@ -56,6 +56,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "layer_norm": {
         "mxt_layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _P],
+        "mxt_layer_norm_fwd_warp": [_P, _P, _P, _P, _P, _P, _I64, _I, _F, _I,
+                                    _P],
         "mxt_rms_norm_fwd": [_P, _P, _P, _P, _I64, _I, _F, _I, _P],
     },
     "paged_attention": {
@@ -65,6 +67,7 @@ _SIGNATURES = {
     "fused_decode": {
         "mxt_qkv_project": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "mxt_out_project": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "mxt_qkv_cluster": [_I, _I, _I],
     },
     "flash_attention": {
         "mxt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],

@@ -21,6 +21,16 @@ is a rank-N update (N = lanes), so the cost is reading the weights once
 kernels live in ``csrc/fused_decode.cu``; each wrapper takes its plain
 PyTorch version for CPU tensors.
 
+K5a runs as a thread-block cluster of C blocks per (Q|K|V, head), each
+block about D/C of the head's weight rows, brought into shared memory by
+bulk copies (TMA) on mbarriers; the int8 amax per token is merged over
+the cluster through distributed shared memory. C is the source's
+``QKV_CLUSTER`` (3: 108 blocks at gpt_like's width, at most one an SM),
+doubled up to 8 where a block's slab and 8 tokens of x would not fit in
+shared memory; where they do not fit even at 8, one block per (Q|K|V,
+head) streams the rows from device memory (the head
+route). :func:`qkv_cluster` reports the choice.
+
 Gate: :func:`fused_decode_armed` reads ``MXNET_TPU_LLM_FUSED_DECODE``
 (``0``/``1``/``auto``, default ``auto``). ``auto`` arms for CUDA tensors
 and stays off on the CPU, as the reference's ``auto`` arms on the TPU
@@ -41,7 +51,8 @@ from ..nn import (_KV_SCALE_BYTES, kernels_enabled, kv_cache_quantize,
 from .paged_attention import paged_attention_kernel
 
 __all__ = ["fused_decode_armed", "fused_decode_step", "fused_qkv_project",
-           "fused_out_project", "qkv_project_plain", "out_project_plain"]
+           "fused_out_project", "qkv_project_plain", "out_project_plain",
+           "qkv_cluster"]
 
 
 def fused_decode_armed(device: torch.device) -> bool:
@@ -104,6 +115,16 @@ def _check_dense(what, x, w, b, rows):
     _build.require(x.is_contiguous() and w.is_contiguous()
                    and (b is None or b.is_contiguous()), what,
                    "inputs must be contiguous")
+
+
+def qkv_cluster(u, heads, dtype):
+    """K5a's cluster size on the card for (units, heads, activation
+    dtype): C of the cluster route, or 0 where the head route takes the
+    shape (``mxt_qkv_cluster``)."""
+    c = _build.load("fused_decode").mxt_qkv_cluster(
+        u, heads, _build.dtype_code(dtype))
+    _build.require(c >= 0, "qkv_cluster", f"units {u} / heads {heads}")
+    return c
 
 
 def fused_qkv_project(x, w_qkv, b_qkv, *, heads, store_dtype):

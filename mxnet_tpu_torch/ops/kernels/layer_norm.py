@@ -2,12 +2,17 @@
 ``mxnet_tpu/ops/pallas/layer_norm.py``).
 
 Replaces ``_ln_kernel`` (``ops/pallas/layer_norm.py:32``, reached
-through ``fused_layer_norm`` -> ``_run_norm``) with the hand-written
-CUDA kernel in ``csrc/layer_norm.cu``: one block per row, f32 mean and
-centred variance, writing ``y``, ``mean`` and ``rstd``. Bound on the
-H100: bytes (one read and one write per element); at the decode shape
-(8, 768) it is launch-bound. Every ``LayerNorm`` of gpt_like (``ln1``,
-``ln2``, ``final_ln``) runs it: 2L+1 launches per forward.
+through ``fused_layer_norm`` -> ``_run_norm``) with hand-written CUDA in
+``csrc/layer_norm.cu``: f32 mean and centred variance, writing ``y``,
+``mean`` and ``rstd``. Bound on the H100: bytes (one read and one write
+per element); at the decode shape (8, 768) it is launch-bound. Every
+``LayerNorm`` of gpt_like (``ln1``, ``ln2``, ``final_ln``) runs it: 2L+1
+launches per forward. Two kernels take K2, chosen by :func:`ln_route`
+from the row's shape: ``ln_fwd_warp_kernel`` (one warp per row, the row
+in registers as 16-byte vectors, two warp sums, no shared memory) for
+rows of 16-byte multiples on 16-byte-aligned storage with D <= 1024,
+and ``ln_fwd_kernel`` (one block per row) for every other row up to
+D 8192. Either is a launch of K2 and adds one to ``.launches``.
 
 :func:`fused_layer_norm` is a ``torch.autograd.Function`` on both
 devices, as the reference's is a ``jax.custom_vjp``: its forward
@@ -34,6 +39,7 @@ import torch
 from . import _build
 
 __all__ = ["fused_layer_norm", "layer_norm_plain", "layer_norm_backward",
+           "ln_route", "ln_launch",
            "fused_rms_norm", "rms_norm_plain", "rms_norm_backward"]
 
 
@@ -69,6 +75,36 @@ def layer_norm_backward(x, gamma, mean, rstd, g, beta_dtype):
     return dx, dgamma, dbeta
 
 
+LN_WARP_MAX_D = 1024
+
+
+def ln_route(x, gamma, beta):
+    """The K2 kernel that takes these rows: ``"warp"`` when D·itemsize is
+    a multiple of 16, x, gamma and beta start on 16-byte boundaries and
+    D <= 1024 (the output is a fresh allocation, always aligned);
+    ``"block"`` otherwise."""
+    d = x.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, gamma, beta))
+    return ("warp" if aligned and d <= LN_WARP_MAX_D
+            and (d * x.element_size()) % 16 == 0 else "block")
+
+
+def ln_launch(lib, route, x, gamma, beta, eps, stream):
+    """Launch one K2 kernel of ``lib`` by its C entry (``route`` as
+    :func:`ln_route`); returns ``(y, mean, rstd)`` and the entry's error
+    code."""
+    n, d = x.shape
+    y = torch.empty_like(x)
+    mean = torch.empty((n,), dtype=torch.float32, device=x.device)
+    rstd = torch.empty((n,), dtype=torch.float32, device=x.device)
+    entry = (lib.mxt_layer_norm_fwd_warp if route == "warp"
+             else lib.mxt_layer_norm_fwd)
+    err = entry(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, d,
+                float(eps), _build.dtype_code(x.dtype), stream)
+    return (y, mean, rstd), err
+
+
 def _ln_forward(x, gamma, beta, eps):
     """The K2 launch (CUDA tensors) or its plain version (CPU tensors)."""
     what = "fused_layer_norm"
@@ -86,17 +122,12 @@ def _ln_forward(x, gamma, beta, eps):
     _build.require(x.is_contiguous() and gamma.is_contiguous()
                    and beta.is_contiguous(), what, "inputs must be contiguous")
     lib = _build.load("layer_norm")
-    y = torch.empty_like(x)
-    mean = torch.empty((n,), dtype=torch.float32, device=x.device)
-    rstd = torch.empty((n,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.mxt_layer_norm_fwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), n, d, float(eps),
-            _build.dtype_code(x.dtype), _build.stream_ptr(x.device))
+        out, err = ln_launch(lib, ln_route(x, gamma, beta), x, gamma, beta,
+                             eps, _build.stream_ptr(x.device))
     _build.check(err, what)
     fused_layer_norm.launches += 1
-    return y, mean, rstd
+    return out
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -119,8 +150,8 @@ class _LayerNorm(torch.autograd.Function):
 def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
     """LayerNorm over the last axis of (N, D). Returns
     ``(y, mean, rstd)``; ``y`` is differentiable in x, gamma and beta.
-    CUDA tensors: the K2 kernel (x, gamma and beta of one dtype, float32
-    or bfloat16, contiguous, D <= 8192)."""
+    CUDA tensors: a K2 kernel, by :func:`ln_route` (x, gamma and beta of
+    one dtype, float32 or bfloat16, contiguous, D <= 8192)."""
     return _LayerNorm.apply(x, gamma, beta, float(eps))
 
 

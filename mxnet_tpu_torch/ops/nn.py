@@ -104,13 +104,17 @@ dropout_generator = generator
 def dropout(x, p=0.5, training=True, axes=()):
     """reference src/operator/nn/dropout.cc: keep each value with
     probability 1 - p and scale it by 1 / (1 - p). The mask draws from
-    :func:`generator` of x's device; along ``axes`` one draw is shared
-    (the mask has size 1 there)."""
+    :func:`generator` of x's device. With ``axes``, the mask keeps its
+    size on the axes named there and has size 1 (one draw shared) on
+    every other axis, as the reference's ``ops/nn.py`` dropout: a
+    negative entry names no axis, so ``axes=(-1,)`` makes one draw for
+    the whole tensor; empty ``axes`` gives a full mask."""
     if not training or p <= 0:
         return x
     keep = 1.0 - p
-    shared = {a % x.dim() for a in axes}
-    shape = [1 if i in shared else s for i, s in enumerate(x.shape)]
+    shape = list(x.shape)
+    if axes:
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
     mask = torch.rand(shape, generator=generator(x.device),
                       device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

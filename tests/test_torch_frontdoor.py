@@ -638,9 +638,10 @@ def test_save_load_round_trip_is_bitwise_and_checks_names(tmp_path,
 
 def test_block_utilities(monkeypatch):
     """Forward hooks (detach), apply, cast, zero_grad, grad_req "add"
-    kept by the Trainer, lr_mult, Sequential indexing, Activation,
-    Lambda, Constant, hybridize (accepted, eager), and initialize's
-    default device."""
+    kept by the Trainer, lr_mult (a Parameter's does not reach the
+    optimizer, as in the reference; the optimizer's set_lr_mult by name
+    does), Sequential indexing, Activation, Lambda, Constant, hybridize
+    (accepted, eager), and initialize's default device."""
     net = tnn.HybridSequential()
     net.add(tnn.Dense(4, in_units=3), tnn.Activation("relu"),
             tnn.Lambda(lambda x: x * 2), tnn.Dense(2))
@@ -663,7 +664,7 @@ def test_block_utilities(monkeypatch):
     assert float(w.data().abs().max()) <= 0.07       # Uniform(0.07)
     assert float(net[0].bias.data().abs().max()) == 0.0
     w.grad_req = "add"
-    w.lr_mult = 0.0
+    w.lr_mult = 0.0                    # the reference's Trainer ignores it
     tr = tmx.gluon.Trainer(net.collect_params(), "sgd",
                            {"learning_rate": 0.1})
     before = w.data().detach().clone()
@@ -673,9 +674,14 @@ def test_block_utilities(monkeypatch):
         autograd.backward(loss)
     acc = w.grad().clone()
     tr.step(1)
-    assert torch.equal(w.data(), before)             # lr_mult 0
+    assert torch.equal(w.data(), before - 0.1 * acc)  # lr_mult 0 ignored
     assert torch.equal(w.grad(), acc)                # "add" kept
     assert net[3].weight.data().grad is None         # "write" cleared
+    name = next(n for n, p in net.collect_params().items() if p is w)
+    tr.optimizer.set_lr_mult({name: 0.0})
+    before = w.data().detach().clone()
+    tr.step(1, ignore_stale_grad=True)               # w's "add" grad kept
+    assert torch.equal(w.data(), before)             # set_lr_mult by name
     net.zero_grad()
     assert float(w.grad().abs().max()) == 0.0
     net.cast("float64")
@@ -706,3 +712,90 @@ def test_port_blocks_keep_their_state_dict_names():
     assert float(params["encoder.layer0.ln1.gamma"].data().min()) == 1.0
     assert float(params["encoder.layer0.attn.qkv.bias"].data().abs().max()) \
         == 0.0
+
+
+@pytest.mark.parametrize("axes", [(1,), (0, 2), (), (-1,)])
+def test_dropout_mask_varies_on_the_reference_axes(axes):
+    """Dropout with ``axes`` on a (4, 6, 8) input: the port's mask
+    (ops.nn.dropout and npx.dropout, mode "always") varies on exactly the
+    axes on which the reference's (mxnet_tpu.ops.nn.dropout) does: those
+    named in ``axes``, every axis for empty ``axes``, none for (-1,) (a
+    negative entry names no axis: one draw). The two generators never
+    agree, so the test compares which axes vary over four draws, not the
+    bits; the kept values are x / (1 - p) on both sides."""
+    from mxnet_tpu.ops import nn as jops
+
+    x = onp.ones((4, 6, 8), onp.float32)
+
+    def varying(masks):
+        return {a for m in masks for a in range(3)
+                if not (m == m.take([0], axis=a)).all()}
+
+    jmasks, tmasks = [], []
+    for i in range(4):
+        jout = onp.asarray(jops.dropout(jnp.asarray(x), p=0.5,
+                                        key=jax.random.PRNGKey(i),
+                                        axes=axes))
+        assert set(onp.unique(jout)) <= {0.0, 2.0}
+        jmasks.append(jout != 0)
+        for fn in (lambda t: tops.dropout(t, p=0.5, axes=axes),
+                   lambda t: tmx.npx.dropout(t, p=0.5, axes=axes,
+                                             mode="always")):
+            tout = fn(torch.from_numpy(x)).numpy()
+            assert set(onp.unique(tout)) <= {0.0, 2.0}
+            tmasks.append(tout != 0)
+    want = set(range(3)) if not axes else {a for a in axes if a >= 0}
+    assert varying(jmasks) == want
+    assert varying(tmasks) == want
+
+
+def test_trainer_ignores_parameter_lr_mult_as_the_reference():
+    """With ``lr_mult = 0`` on one Parameter, the JAX Trainer and the
+    port's take the same SGD step from the same numpy weights and
+    gradients (1e-6): neither applies the multiplier. Set on the
+    optimizer by name (``set_lr_mult({name: 0.0})``), it leaves that
+    weight unchanged in both."""
+    rng = onp.random.RandomState(21)
+    w0 = rng.randn(3, 4).astype(onp.float32)
+    b0 = rng.randn(3).astype(onp.float32)
+    x = rng.randn(5, 4).astype(onp.float32)
+    jnet = jmx.gluon.nn.Dense(3, in_units=4)
+    jnet.initialize()
+    tnet = tnn.Dense(3, in_units=4)
+    tnet.initialize(device="cpu")
+
+    def step(by_name):
+        jp, tp = jnet.collect_params(), tnet.collect_params()
+        assert list(jp) == list(tp) == ["weight", "bias"]
+        jp["weight"].set_data(jmx.np.array(w0))
+        jp["bias"].set_data(jmx.np.array(b0))
+        from_jax_params({"weight": w0, "bias": b0}, tnet)
+        jp["weight"].lr_mult = tp["weight"].lr_mult = 0.0
+        jtr = jmx.gluon.Trainer(jp, "sgd", {"learning_rate": 0.1})
+        ttr = tmx.gluon.Trainer(tp, "sgd", {"learning_rate": 0.1})
+        if by_name:
+            jtr.optimizer.set_lr_mult({"weight": 0.0})
+            ttr.optimizer.set_lr_mult({"weight": 0.0})
+        with jautograd.record():
+            jl = (jnet(jmx.np.array(x)) ** 2).sum()
+        jl.backward()
+        jg = jp["weight"].grad().asnumpy()
+        jtr.step(1)
+        with autograd.record():
+            tl = (tnet(torch.from_numpy(x)) ** 2).sum()
+        autograd.backward(tl)
+        tg = tp["weight"].grad().numpy().copy()
+        ttr.step(1)
+        onp.testing.assert_allclose(tg, jg, rtol=1e-6, atol=1e-6)
+        got = to_jax_params(tnet)
+        for n in ("weight", "bias"):
+            onp.testing.assert_allclose(got[n], jp[n].data().asnumpy(),
+                                        rtol=1e-6, atol=1e-6, err_msg=n)
+        return got["weight"], jp["weight"].data().asnumpy(), jg
+
+    tw, jw, g = step(by_name=False)
+    onp.testing.assert_allclose(jw, w0 - 0.1 * g, rtol=1e-6, atol=1e-6)
+    assert not onp.allclose(tw, w0)
+    tw, jw, _ = step(by_name=True)
+    onp.testing.assert_array_equal(jw, w0)
+    onp.testing.assert_array_equal(tw, w0)

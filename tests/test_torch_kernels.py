@@ -81,6 +81,89 @@ def test_layer_norm_op_matches_jax_op_and_no_kernels_path():
     onp.testing.assert_allclose(plain, want, rtol=2e-5, atol=2e-5)
 
 
+def _ln_warp(x, g, b, eps, v):
+    """The arithmetic of K2's warp route in torch (f32): vector j (``v``
+    values) of a row lies on lane j % 32; each lane sums its values in
+    order, vector by vector, and a butterfly over xor 16, 8, 4, 2, 1
+    gives every lane the row sum; the mean, then the centred variance the
+    same way, rstd = 1 / sqrt(var + eps), y = (x - mean) * rstd * g + b."""
+    n, d = x.shape
+    lane = (torch.arange(d) // v) % 32
+
+    def warp_sum(t):
+        s = torch.zeros(n, 32)
+        for i in range(d):
+            s[:, lane[i]] += t[:, i]
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, torch.arange(32) ^ o]
+        return s[:, 0]
+
+    mean = warp_sum(x) / d
+    c = x - mean[:, None]
+    var = warp_sum(c * c) / d
+    rstd = 1.0 / torch.sqrt(var + eps)
+    return c * rstd[:, None] * g + b, mean, rstd
+
+
+@pytest.mark.parametrize("n,d", [(8, 32), (13, 96), (5, 200), (3, 1024)])
+def test_layer_norm_warp_layout_matches_jax_kernel(n, d):
+    """K2's warp route (one warp per row, lane-strided 16-byte vectors,
+    lane partials, butterfly sums), emulated in torch, against the Pallas
+    _ln_kernel in interpret mode: y, mean and rstd, f32 at 2e-6. D 200
+    leaves lanes with one vector and lanes with two; D 1024 is the widest
+    row the route takes (8 vectors a lane)."""
+    rng = onp.random.RandomState(n * 7 + d)
+    x = (rng.randn(n, d) * 3 + 1).astype(onp.float32)
+    g = rng.randn(d).astype(onp.float32)
+    b = rng.randn(d).astype(onp.float32)
+    want, (_, _, _, jmean, jrstd) = jln._ln_fwd(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), 1e-5, True)
+    y, mean, rstd = _ln_warp(_t(x), _t(g), _t(b), 1e-5, 4)
+    for got, ref in ((y, want), (mean, jmean), (rstd, jrstd)):
+        onp.testing.assert_allclose(got.numpy(), onp.asarray(ref),
+                                    rtol=2e-6, atol=2e-6)
+
+
+def test_layer_norm_route_by_width_dtype_and_alignment():
+    """The K2 wrapper's choice between its two kernels: the warp route
+    for rows of 16-byte multiples on 16-byte-aligned x, gamma and beta
+    with D <= 1024, the block route otherwise; ln_launch calls the
+    chosen C entry (a stand-in library here) with the row count, width
+    and dtype code."""
+    class Lib:
+        def __init__(self):
+            self.calls = []
+
+        def mxt_layer_norm_fwd_warp(self, *args):
+            self.calls.append(("warp", args[6], args[7], args[9]))
+            return 0
+
+        def mxt_layer_norm_fwd(self, *args):
+            self.calls.append(("block", args[6], args[7], args[9]))
+            return 0
+
+    def rows(n, d, dtype, offset=0):
+        return torch.zeros(n * d + offset, dtype=dtype)[offset:].view(n, d)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((768, f32, 0, 0), "warp"), ((768, bf16, 0, 0), "warp"),
+             ((1024, f32, 0, 0), "warp"), ((8, bf16, 0, 0), "warp"),
+             ((1028, f32, 0, 0), "block"), ((4096, f32, 0, 0), "block"),
+             ((770, f32, 0, 0), "block"), ((772, bf16, 0, 0), "block"),
+             ((776, bf16, 0, 0), "warp"), ((768, f32, 1, 0), "block"),
+             ((768, bf16, 4, 0), "block"), ((768, f32, 0, 1), "block")]
+    lib = Lib()
+    for (d, dtype, x_off, g_off), route in cases:
+        x = rows(3, d, dtype, x_off)
+        gamma, beta = rows(1, d, dtype, g_off)[0], rows(1, d, dtype)[0]
+        assert tln.ln_route(x, gamma, beta) == route, (d, dtype, x_off,
+                                                       g_off)
+        (y, mean, rstd), err = tln.ln_launch(lib, route, x, gamma, beta,
+                                             1e-5, 0)
+        assert err == 0 and y.shape == x.shape and mean.shape == (3,)
+        assert lib.calls[-1] == (route, 3, d, _build.dtype_code(dtype))
+
+
 # ---------------------------------------------------------------------------
 # int8 KV layout
 # ---------------------------------------------------------------------------
@@ -360,6 +443,72 @@ def test_rounding_probe_rows_are_the_reference_rows():
     onp.testing.assert_array_equal(onp.asarray(jv), rows[:, 1])
     chip_smoke.rounding_probe_check(torch, torch.device("cpu"), u, heads, n)
     assert min(wrong.values()) >= 0.05 * vals.size, wrong
+
+
+def _qkv_cluster(x, w, b, heads, c):
+    """The arithmetic of K5a's cluster route in torch (f32): block k of
+    a (Q|K|V, head) cluster of ``c`` owns features [k*D//c, (k+1)*D//c);
+    each K or V block takes its partial amax per token over its features,
+    the scale is max(the c partials, 1e-6) * f32(1/127), and each block
+    quantizes its own features (round half to even of y / scale, clamped
+    to ±127); rank 0 writes the scale's bytes."""
+    n, u = x.shape
+    d = u // heads
+    y = (x @ w.T + b).reshape(n, 3, heads, d)
+    q = y[:, 0]
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    rows = []
+    for which in (1, 2):
+        t = y[:, which]
+        bounds = [k * d // c for k in range(c + 1)]
+        parts = [t[..., lo:hi].abs().amax(-1)
+                 for lo, hi in zip(bounds, bounds[1:]) if hi > lo]
+        scale = torch.clamp(torch.stack(parts).amax(0), min=1e-6) * inv127
+        vals = torch.empty(n, heads, d, dtype=torch.int8)
+        for lo, hi in zip(bounds, bounds[1:]):
+            vals[..., lo:hi] = torch.clamp(torch.round(
+                t[..., lo:hi] / scale[..., None]), -127, 127).to(torch.int8)
+        rows.append(torch.cat([vals, scale[..., None].contiguous()
+                               .view(torch.int8)], -1))
+    return q, rows[0], rows[1]
+
+
+@pytest.mark.parametrize("kind", ["normal", "dyadic"])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_qkv_cluster_split_matches_jax_kernel(c, kind):
+    """The cluster split of the CUDA K5a kernel (about D/C features a
+    block, a partial amax per block, the max over the C partials, then
+    the quantize), emulated in torch, against the Pallas _qkv_kernel in
+    interpret mode, at D 12 (C 8 splits it unevenly: blocks of 1 and 2
+    features). Dyadic inputs (exact in any summation order): q and the
+    int8 K/V rows byte-identical, scale bytes included. Normal inputs:
+    q at 2e-5, and the int8 rows as test_qkv_project_matches_jax holds
+    them (scales within 1e-6 relative, values one step apart at most, at
+    most 2 of 240 differing)."""
+    x, w, b = _proj_inputs(17, kind, n=5, u=48)
+    heads, d = 4, 12
+    jq, jk, jv = jfused.fused_qkv_project(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), heads=heads,
+        store_dtype=jnp.int8, interpret=True)
+    q, k, v = _qkv_cluster(_t(x), _t(w), _t(b), heads, c)
+    if kind == "dyadic":
+        onp.testing.assert_array_equal(q.numpy(), onp.asarray(jq))
+        onp.testing.assert_array_equal(k.numpy(), onp.asarray(jk))
+        onp.testing.assert_array_equal(v.numpy(), onp.asarray(jv))
+        return
+    onp.testing.assert_allclose(q.numpy(), onp.asarray(jq), rtol=2e-5,
+                                atol=2e-5)
+    n_diff = 0
+    for got, want in ((k, jk), (v, jv)):
+        got, want = got.numpy(), onp.asarray(want)
+        sg = got[..., d:].copy().view(onp.float32)
+        sw = want[..., d:].copy().view(onp.float32)
+        onp.testing.assert_allclose(sg, sw, rtol=1e-6, atol=0)
+        steps = onp.abs(got[..., :d].astype(onp.int32)
+                        - want[..., :d].astype(onp.int32))
+        assert steps.max() <= 1, steps.max()
+        n_diff += int((steps > 0).sum())
+    assert n_diff <= 2, n_diff
 
 
 def test_out_project_matches_jax():
