@@ -9,10 +9,14 @@ NVIDIA H100.
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result)
     python3 chip_smoke.py --trials     # also, after phase 1, trial builds
                                        # of K4's span, K1 forward's
-                                       # tiling and K5a's cluster size,
-                                       # threads and slab copies (and two
-                                       # diagnostic K5a builds) timed
-                                       # against each other
+                                       # tiling, K5a's cluster size,
+                                       # threads and slab copies, and
+                                       # K5b's rows, stages, threads and
+                                       # row route (and two diagnostic
+                                       # builds each of K5a and K5b)
+                                       # timed against each other
+    python3 chip_smoke.py --trials=K5b # only the trials whose label
+                                       # holds "K5b"
 
 Phases (each asserts; any failure exits non-zero before the result line):
 
@@ -46,8 +50,15 @@ Phases (each asserts; any failure exits non-zero before the result line):
    cuobjdump must find the bulk copy in every instantiation and the
    cluster barrier in the int8 ones; two runs must give the same bits;
    20 tokens (three chunks) and a width on its head route (U 4096) must
-   give the plain version's rows byte for byte on exact inputs. A
-   near-empty launch (:func:`launch_floor`) is timed beside K2 and K5a.
+   give the plain version's rows byte for byte on exact inputs. K5b runs
+   on every SM, a block's weight rows brought in by bulk copies through
+   a ring of stages: cuobjdump must find the bulk copy in both of its
+   instantiations; its geometry is printed; two runs must give the same
+   bits; and 20 tokens, a U_out no block size divides, U 4096, a width
+   whose rows the ring walks (U_in 4608, 20 tokens), bfloat16 and a
+   width on its row route (U_in 8192) must give the plain version's
+   outputs byte for byte on exact inputs. A near-empty launch
+   (:func:`launch_floor`) is timed beside K2, K5a and K5b.
    K2r (RMSNorm
    forward) and R (runtime-compiled user kernels) are checked at the
    front-door path's shapes (:func:`frontdoor_kernel_checks`).
@@ -91,6 +102,7 @@ The last lines are the card line, one ``{"kernels": [...]}`` line and
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -235,7 +247,6 @@ def bound_ms(nbytes, flops):
 def kernel_name(mangled):
     """A template kernel's mangled name as name<T, DP>; others as they
     are."""
-    import re
 
     t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f|6__half)"
                   r"Li(\d+)E", mangled)
@@ -249,7 +260,6 @@ def kernel_name(mangled):
 def ptxas_summary(log):
     """(kernel, registers line, spill line) for each kernel in an ``nvcc
     -Xptxas -v`` log."""
-    import re
 
     out, fn, spill = [], None, ""
     for line in log.splitlines():
@@ -268,7 +278,6 @@ def sass_opcodes(lib):
     """``cuobjdump -sass`` of a built kernel library: the count of each
     instruction mnemonic in each kernel, by mangled name, or None where
     the toolkit has no cuobjdump."""
-    import re
     from collections import Counter
 
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
@@ -300,24 +309,25 @@ def sass_mma_counts(lib):
             for fn, ctr in ops.items()}
 
 
-# K5a's cluster route in SASS: the bulk copy (cp.async.bulk) and the
-# cluster barrier (barrier.cluster, cluster.sync); mbarrier and fence
-# instructions are printed beside them
+# K5a's cluster route and K5b's ring route in SASS: the bulk copy
+# (cp.async.bulk) and the cluster barrier (barrier.cluster, cluster.sync);
+# mbarrier and fence instructions are printed beside them
 SASS_BULK, SASS_CLUSTER_BAR = "BLKCP", "CGABAR"
 SASS_SHOWN = ("BLK", "TMA", "CGA", "SYNCS", "FENCE", "MEMBAR")
 
 
-def k5a_sass_check(path):
-    """Every qkv_cluster_kernel instantiation must issue a bulk copy, and
-    the int8 ones (``Lb1E``: QUANT true) a cluster barrier; prints the
-    mnemonics found. Returns them, or None without cuobjdump."""
+def bulk_copy_sass_check(path):
+    """Every qkv_cluster_kernel (K5a, 8) and out_ring_kernel (K5b, 2)
+    instantiation must issue a bulk copy, and the int8 K5a ones
+    (``Lb1E``: QUANT true) a cluster barrier; prints the mnemonics found.
+    Returns them, or None without cuobjdump."""
     ops = sass_opcodes(path)
     if ops is None:
         print("cuobjdump not found: SASS of fused_decode not inspected")
         return None
     found = {}
     for fn, ctr in ops.items():
-        if "qkv_cluster_kernel" not in fn:
+        if "qkv_cluster_kernel" not in fn and "out_ring_kernel" not in fn:
             continue
         shown = {op: c for op, c in sorted(ctr.items())
                  if any(k in op for k in SASS_SHOWN)}
@@ -326,9 +336,11 @@ def k5a_sass_check(path):
         cbar = sum(c for op, c in shown.items() if SASS_CLUSTER_BAR in op)
         print(f"cuobjdump -sass fused_decode {fn}: {shown}", flush=True)
         check(bulk > 0, f"{fn}: no bulk copy ({SASS_BULK}) in its SASS")
-        check(cbar > 0 or "Lb1E" not in fn,
+        check(cbar > 0 or "Lb1E" not in fn or "out_ring" in fn,
               f"{fn}: no cluster barrier ({SASS_CLUSTER_BAR}) in its SASS")
-    check(len(found) == 8, f"qkv_cluster_kernel instantiations: {list(found)}")
+    counts = [sum(k in fn for fn in found)
+              for k in ("qkv_cluster_kernel", "out_ring_kernel")]
+    check(counts == [8, 2], f"bulk-copy kernel instantiations: {list(found)}")
     return found
 
 
@@ -508,7 +520,7 @@ def kernel_checks(torch, dev, floor_ms):
     """Phase 2: every kernel against its plain version at full-width
     shapes. Returns every measured row; the first row of each kernel is
     its entry in the kernels line. ``floor_ms`` is the launch floor
-    (:func:`launch_floor`), printed beside K2 and K5a."""
+    (:func:`launch_floor`), printed beside K2, K5a and K5b."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import nn as tnn
@@ -705,17 +717,66 @@ def kernel_checks(torch, dev, floor_ms):
                      "elements_off": off})
         del xx, ww, bb, got, want
 
+    # K5b: the ring route at the decode step's shape, W cold in L2 ------
+    geo = {str(dt)[6:]: kfd.out_geometry(u, u, dt)
+           for dt in (torch.float32, torch.bfloat16)}
+    print(f"out_project: geometry at U {u}: {geo}", flush=True)
+    check(all(g_["route"] == "ring" and not g_["walks"]
+              for g_ in geo.values()),
+          f"out_project U {u}: not on the ring route with its slab resident")
     a = randn(n, u)
     wo = [randn(u, u, scale=0.02) for _ in range(n_sets)]
     bo = [randn(u, scale=0.02) for _ in range(n_sets)]
-    err = (kfd.fused_out_project(a, wo[0], bo[0])
-           - kfd.out_project_plain(a, wo[0], bo[0])).abs().max().item()
+    o5 = kfd.fused_out_project(a, wo[0], bo[0])
+    # fixed-order sums: a second run, the same bits
+    check(torch.equal(o5, kfd.fused_out_project(a, wo[0], bo[0])),
+          "out_project: two runs differ")
+    err = (o5 - kfd.out_project_plain(a, wo[0], bo[0])).abs().max().item()
     rows.append(measure(
+        # f32 sums of 768 terms in another order
         "out_project", f"N{n} U{u}", err, 1e-4,
         lambda i: kfd.fused_out_project(a, wo[i], bo[i]),
         lambda i: kfd.out_project_plain(a, wo[i], bo[i]),
         lambda i: F.linear(a, wo[i], bo[i]),
         4 * (u * u + u + 2 * n * u), 2 * n * u * u, n_inputs=n_sets))
+    row = rows[-1]
+    row.update(geometry=geo["float32"], launch_floor_ms=floor_ms,
+               two_runs_bitwise=True)
+    print(f"out_project N{n} U{u} f32, cold W: ms {row['ms']:.5f} against "
+          f"its bound {row['bound_ms']:.6f}, the launch floor "
+          f"{floor_ms:.5f}, F.linear {row['library_ms']:.5f} "
+          f"({row['library_ms'] / row['ms']:.2f}x the kernel's time); "
+          "two runs bitwise equal", flush=True)
+    del wo, bo
+    # exact (dyadic) inputs, byte for byte against the plain version: 20
+    # tokens (three chunks), a U_out no block size divides, U 4096 f32
+    # (its rows just fit beside the activations), a width whose rows the
+    # ring walks (U_in 4608 f32), bfloat16, and a width on the row route
+    # (U_in 8192 f32)
+    for n_, ui, uo, dt, route in (
+            (20, u, u, torch.float32, "resident"),
+            (n, u, 769, torch.float32, "resident"),
+            (n, 4096, 4096, torch.float32, "resident"),
+            (20, 4608, u, torch.float32, "walks"),
+            (n, u, u, torch.bfloat16, "resident"),
+            (n, 8192, u, torch.float32, "row")):
+        g_ = kfd.out_geometry(ui, uo, dt)
+        got_route = ("row" if g_["route"] == "row"
+                     else "walks" if g_["walks"] else "resident")
+        case = (f"N{n_} U_in {ui} U_out {uo} {str(dt)[6:]}, dyadic inputs, "
+                f"{got_route} (rows {g_['rows']}, stages {g_['stages']}, "
+                f"slots {g_['slots']}, blocks {g_['blocks']})")
+        check(got_route == route, f"out_project {case}: expected {route}")
+        aa = dyadic(n_, ui, denom=4).to(dt)
+        ww, bb = dyadic(uo, ui, denom=64).to(dt), dyadic(uo, denom=4).to(dt)
+        off = int((kfd.fused_out_project(aa, ww, bb)
+                   != kfd.out_project_plain(aa, ww, bb)).sum().item())
+        print(f"out_project {case}: {off} elements differing from the plain "
+              "version (must be 0)", flush=True)
+        check(off == 0, f"out_project {case}: {off} elements differ")
+        rows.append({"name": "out_project", "case": case, "max_abs_err": 0.0,
+                     "elements_off": off})
+        del aa, ww, bb
     return rows
 
 
@@ -1806,6 +1867,27 @@ def write_results(results):
         json.dump(results, fh, indent=1)
 
 
+# K5b's ring route without its products (the loop over a share of U_in
+# runs no iteration), without the activations' copy, without the
+# weights' copies
+K5B_NO_FMA = ("for (int j = lane + 32 * warp; j < nvec; j += 32 * OUT_WARPS) {",
+              "for (int j = lane + 32 * warp; j < 0; j += 32 * OUT_WARPS) {")
+K5B_NO_X = ("u_in * sizeof(T));\n    mbar_expect_tx(xbar, bytes);\n",
+            "u_in * sizeof(T));\n    mbar_expect_tx(xbar, 0);\n    return;\n")
+K5B_NO_W = (
+    "    mbar_expect_tx(bar0 + 8 * slot, bytes);\n"
+    "    bulk_g2s(ring + (size_t)slot * stage_rows * u_in,\n"
+    "             w + (int64_t)(o0 + r0) * u_in, bytes, bar0 + 8 * slot);\n",
+    "    mbar_expect_tx(bar0 + 8 * slot, 0);\n")
+
+
+def k5b_const(name, value):
+    """The substitution (a pattern) that sets one of K5b's constants in
+    fused_decode.cu."""
+    return (re.compile(rf"constexpr int {name} = \d+;"),
+            f"constexpr int {name} = {value};")
+
+
 # --trials: builds of a source with one constant changed, timed against
 # each other in one run. (source, label, [(text, replacement)])
 TRIALS = (
@@ -1845,6 +1927,33 @@ TRIALS = (
     ("fused_decode", "diagnostic: K5a without the products", [
         ("for (int j = lane + 32 * p; j < nvec; j += 32 * parts) {",
          "for (int j = lane + 32 * p; j < 0; j += 32 * parts) {")]),
+    # K5b: rows a block owns (R), bulk copies of the slab (S), threads,
+    # copies of the activations; the row route (out_kernel) for every
+    # shape; and diagnostic builds of the ring route (results not
+    # checked): the launch alone, and the copies, waits and epilogue
+    # without the products, and without either copy
+    *(("fused_decode", f"K5b R {r}", [k5b_const("OUT_ROWS", r)])
+      for r in (4, 8, 12)),
+    ("fused_decode", "K5b R 6, 1 stage, 256 threads, the activations in 4 "
+     "copies (the source)", []),
+    ("fused_decode", "K5b 2 stages", [k5b_const("OUT_STAGES", 2)]),
+    ("fused_decode", "K5b R 12, 3 stages", [k5b_const("OUT_ROWS", 12),
+                                            k5b_const("OUT_STAGES", 4)]),
+    *(("fused_decode", f"K5b {t} threads",
+       [k5b_const("OUT_RING_THREADS", t)]) for t in (128, 384)),
+    *(("fused_decode", f"K5b the activations in {c} cop"
+       f"{'ies' if c > 1 else 'y'}", [k5b_const("OUT_X_COPIES", c)])
+      for c in (1, 8)),
+    ("fused_decode", "K5b on the row route (out_kernel)", [
+        ("      g.route = 1;\n", "      g.route = 0;\n")]),
+    ("fused_decode", "diagnostic: K5b returning at entry", [
+        ("  const int o0 = blockIdx.x * geo.rows;",
+         "  if (n_tok >= 0) return;\n  const int o0 = blockIdx.x * geo.rows;")]),
+    ("fused_decode", "diagnostic: K5b without the products", [K5B_NO_FMA]),
+    ("fused_decode", "diagnostic: K5b without the products or the "
+     "activations' copy", [K5B_NO_FMA, K5B_NO_X]),
+    ("fused_decode", "diagnostic: K5b without the products or the weights' "
+     "copies", [K5B_NO_FMA, K5B_NO_W]),
 )
 
 
@@ -1862,8 +1971,12 @@ def trial_builds(trials):
     for i, (name, label, subs) in enumerate(trials):
         src = (_build._SRC / f"{name}.cu").read_text()
         for old, new in subs:
-            check(old in src, f"trial {label}: {old!r} not in {name}.cu")
-            src = src.replace(old, new)
+            if isinstance(old, re.Pattern):
+                src, hits = old.subn(new, src)
+            else:
+                hits = src.count(old)
+                src = src.replace(old, new)
+            check(hits > 0, f"trial {label}: {old!r} not in {name}.cu")
         cu, lib = out / f"{name}-{i}.cu", out / f"lib{name}-{i}.so"
         cu.write_text(src)
         procs.append((subprocess.Popen(
@@ -1885,17 +1998,20 @@ def trial_builds(trials):
     return libs, logs
 
 
-def trial_phase(torch, dev):
-    """``--trials``: the K4 span, K1 forward's tiling and K5a's cluster
-    size, each build timed twice, in turns, at the shapes the main paths
-    give them, after a check against the plain version."""
+def trial_phase(torch, dev, only=""):
+    """``--trials``: the K4 span, K1 forward's tiling, K5a's cluster size
+    and K5b's rows, stages and threads, each build timed twice, in turns,
+    at the shapes the main paths give them, after a check against the
+    plain version. ``--trials=K5b`` runs only the trials whose label
+    holds ``K5b``."""
     from mxnet_tpu_torch.ops import nn as tnn
     from mxnet_tpu_torch.ops.kernels import _build
     from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
     from mxnet_tpu_torch.ops.kernels import fused_decode as kfd
     from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
 
-    libs, logs = trial_builds(TRIALS)
+    trials = [t for t in TRIALS if only in t[1]]
+    libs, logs = trial_builds(trials)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 9)
     heads, d, bs, r, mb = 12, 64, 16, 8, 128
@@ -1928,11 +2044,16 @@ def trial_phase(torch, dev):
     w5 = [(0.02 * torch.randn(3 * u, u, generator=g, device=dev),
            0.02 * torch.randn(3 * u, generator=g, device=dev))
           for _ in range(12)]
+    # K5b at the decode step's shape, 12 weight sets (cold in L2)
+    a5 = torch.randn(8, u, generator=g, device=dev)
+    wo5 = [(0.02 * torch.randn(u, u, generator=g, device=dev),
+            0.02 * torch.randn(u, generator=g, device=dev))
+           for _ in range(12)]
     saved = dict(_build._libs)
     res = []
     try:
         for rep in range(2):
-            for (name, label, _), lib, log in zip(TRIALS, libs, logs):
+            for (name, label, _), lib, log in zip(trials, libs, logs):
                 _build._libs[name] = lib
                 row = {"source": name, "trial": label, "rep": rep,
                        "ptxas": log, "ms": {}}
@@ -1950,6 +2071,20 @@ def trial_phase(torch, dev):
                             lambda i: kpa.paged_attention_kernel(
                                 q, ps[i][0], ps[i][1], table, lengths),
                             len(ps))[0]
+                elif "K5b" in label:
+                    geo = kfd.out_geometry(u, u, torch.float32)
+                    if not label.startswith("diagnostic"):
+                        with torch.no_grad():
+                            err = (kfd.fused_out_project(a5, *wo5[0])
+                                   - kfd.out_project_plain(a5, *wo5[0])
+                                   ).abs().max().item()
+                        check(err <= 1e-4, f"trial {label}: err {err}")
+                    row["geometry"] = geo
+                    row["ms"][f"N8 U{u} f32, {geo['route']} route, rows "
+                              f"{geo['rows']}, stages {geo['stages']}, "
+                              f"blocks {geo['blocks']}"] = time_ms(
+                        lambda i: kfd.fused_out_project(a5, *wo5[i]),
+                        len(wo5))[0]
                 elif name == "fused_decode":
                     c = kfd.qkv_cluster(u, heads, torch.float32)
                     if not label.startswith("diagnostic"):
@@ -1989,7 +2124,42 @@ def trial_phase(torch, dev):
     finally:
         _build._libs.clear()
         _build._libs.update(saved)
+    if any("K5b" in t[1] for t in trials):
+        res.append(k5b_landing(torch, res, a5, wo5))
     return res
+
+
+def k5b_landing(torch, res, a5, wo5):
+    """The rate at which K5b's slabs land: W_out's bytes over the time
+    the diagnostic build without the products takes beyond the one that
+    returns at entry (both ring route builds of the source), per run;
+    beside it F.linear on the same inputs as a yardstick."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.kernels import fused_decode as kfd
+
+    def times(label):
+        return [next(iter(r["ms"].values())) for r in res
+                if r["trial"] == f"diagnostic: K5b {label}"]
+
+    u = a5.shape[1]
+    geo = kfd.out_geometry(u, u, torch.float32)
+    w_bytes = 4 * u * u
+    x_bytes = 4 * 8 * u * geo["blocks"]      # every block's activations
+    land = [b - a for a, b in zip(times("returning at entry"),
+                                  times("without the products"))]
+    lin = time_ms(lambda i: F.linear(a5, *wo5[i]), len(wo5))[0]
+    out = {"trial": "K5b slab landing", "w_bytes": w_bytes,
+           "x_bytes_from_l2": x_bytes, "landing_ms": land,
+           "w_tb_s": [w_bytes / (1e9 * ms) for ms in land],
+           "w_and_x_tb_s": [(w_bytes + x_bytes) / (1e9 * ms) for ms in land],
+           "f_linear_ms": lin}
+    print(f"K5b slab landing at N8 U{u} f32: no-products minus "
+          f"return-at-entry {land} ms per run: W_out {w_bytes} bytes at "
+          f"{out['w_tb_s']} TB/s (with every block's activations from L2, "
+          f"{x_bytes} bytes more: {out['w_and_x_tb_s']} TB/s) against "
+          f"3.35 TB/s; F.linear {lin:.5f} ms", flush=True)
+    return out
 
 
 def main(argv):
@@ -2046,10 +2216,14 @@ def main(argv):
         check(len(got) == n and all(got.values()),
               f"{src}: instantiations without HMMA: {got}")
         results["sass_hmma"][src] = got
-    # K5a's cluster route: bulk copies, and cluster barriers in int8
-    results["sass_k5a"] = k5a_sass_check(_build._lib_path("fused_decode"))
-    if "--trials" in argv:
-        results["trials"] = trial_phase(torch, dev)
+    # K5a's cluster route and K5b's ring route: bulk copies, and cluster
+    # barriers in K5a's int8 instantiations
+    results["sass_bulk"] = bulk_copy_sass_check(
+        _build._lib_path("fused_decode"))
+    trials = [a for a in argv if a.split("=")[0] == "--trials"]
+    if trials:
+        results["trials"] = trial_phase(torch, dev,
+                                        trials[0].partition("=")[2])
     # -- phase 2: kernels against their plain versions ----------------------
     results["launch_floor_ms"] = launch_floor(torch)
     rows = kernel_checks(torch, dev, results["launch_floor_ms"])

@@ -146,6 +146,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
+// one arrival (a consumer releasing a ring stage back to the producer)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 // spin until the phase of the given parity has completed. A phase that
 // never completes (a byte count that disagrees with the copies) traps
 // after about 2^26 polls, each of which may suspend the thread for a

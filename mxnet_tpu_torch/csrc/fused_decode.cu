@@ -7,7 +7,8 @@
 // scale, little-endian] (ops/nn.py kv_cache_quantize). A float store
 // dtype is a cast instead.
 // K5b replaces `_out_kernel` (fused_decode.py:120, reached through
-// fused_out_project): a . W_out^T + b.
+// fused_out_project): a . W_out^T + b, summed in f32 and rounded once to
+// the activations' dtype.
 //
 // Bound on this card: bytes. At decode (N = 8 tokens) the products are
 // rank-8 updates whose cost is reading the weights once: 7.08 MB of f32
@@ -45,8 +46,39 @@
 // chunk do not fit in shared memory even at C 8 (f32 U 4096 at D 128,
 // for example), one block per (Q|K|V, head) streams the weight rows from
 // device memory, a warp per output feature.
-// K5b (out_kernel): a warp per output feature streams its weight row with
-// 16-byte loads; the activations are re-read from L1.
+//
+// K5b, the ring route (out_ring_kernel). Bound by bytes: 2.36 MB of f32
+// W_out at U 768 against 8 tokens, so the design is about bringing the
+// rows in from every SM at once. Block b owns the OUT_ROWS (R) contiguous
+// weight rows from R*b; rows are contiguous in (U_out, U_in) row-major,
+// so a block's slab is one span, with no transposed copy. R 6 gives 128
+// blocks at U_out 768, one an SM of the 132. One thread brings the chunk
+// of up to 8 tokens of activations into shared memory by bulk copies (L2
+// hits: every block reads the same lines, so each block takes the
+// OUT_X_COPIES pieces in an order rotated by its index) and the slab
+// through a ring of at most OUT_STAGES stages of whole groups of RW rows,
+// each stage one bulk copy on a "full" mbarrier. Where the slab and the
+// chunk fit (f32 up to U 4096), the ring holds the whole slab, filled
+// once for all token chunks, so the weights are read once for any N; one
+// stage is the fastest at U 768, since every copy is asked for at once
+// and lands at about the same time. Where they do not fit (f32 U_in
+// 4608), the ring walks the rows: every warp releases a stage on its
+// "empty" mbarrier, the thread that issues the copies refills it, and the
+// rows stream again for each token chunk. Warp w multiplies every row of
+// a stage by the 8 tokens over its share of U_in (16-byte vectors j with
+// (j / 32) % OUT_WARPS == w) from shared memory, one load of each
+// activation vector serving all the stage's rows, and sums each group's
+// 32 accumulators across its lanes with transpose_sum; the warps' sums of
+// a row are added in shared memory in warp order, so two runs give the
+// same bits. Each block writes its (8, R) outputs row by row,
+// neighbouring threads on neighbouring addresses.
+//
+// K5b, the row route (out_kernel): where a token chunk and one group of
+// rows do not fit in shared memory (f32 U_in above about 4800), a warp
+// per output feature streams its weight row from device memory with
+// 16-byte loads.
+// out_geometry chooses the route before the launch; mxt_out_geometry
+// reports it.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -79,6 +111,63 @@ static_assert(RW * NC == 32, "a warp's accumulators are one per lane");
 static_assert(CL_WARPS >= NC, "a warp per token takes the amax");
 static_assert(W_CHUNKS * 8 + 8 <= 64, "the mbarriers fit in 64 bytes");
 static_assert(CL_FIXED % 16 == 0, "the slab starts 16-byte aligned");
+
+// K5b's ring route
+constexpr int OUT_ROWS = 6;          // rows a block owns (R)
+constexpr int OUT_STAGES = 1;        // bulk copies of a block's slab (S)
+constexpr int OUT_RING_THREADS = 256;
+constexpr int OUT_X_COPIES = 4;      // bulk copies of the activations
+constexpr int OUT_WARPS = OUT_RING_THREADS / 32;
+constexpr int OUT_GROUPS = (OUT_ROWS + RW - 1) / RW;  // of RW rows a block
+// shared memory before the warps' partial sums: the mbarriers (full and
+// empty per stage, then x's) in 128 bytes, the bias (OUT_ROWS floats)
+constexpr int OUT_FIXED = 128 + (OUT_ROWS * 4 + 15) / 16 * 16;
+static_assert(OUT_ROWS <= OUT_RING_THREADS, "a thread per row loads the bias");
+static_assert((2 * OUT_STAGES + 1) * 8 <= 128, "the mbarriers fit");
+static_assert(OUT_FIXED % 16 == 0, "the activations start 16-byte aligned");
+
+// How K5b runs a shape: the ring route (route 1) with its stages, or the
+// row route (route 0).
+struct OutGeo {
+  int route;
+  int rows;          // rows a block owns (the last block may own fewer)
+  int stage_groups;  // row groups of RW rows in a stage
+  int stages;        // stages of a whole block's slab
+  int slots;         // stages the ring holds; fewer than stages: it walks
+  int blocks;
+  int smem;          // dynamic shared memory, bytes
+};
+
+// The ring route where a token chunk and the ring fit in shared memory:
+// the slab resident in OUT_STAGES copies of whole row groups where it
+// fits, else as many slots as fit walking the rows (a stage of one row
+// group if need be); the row route where not even one such stage fits.
+OutGeo out_geometry(int u_in, int u_out, int itemsize) {
+  OutGeo g = {};
+  g.rows = u_out < OUT_ROWS ? u_out : OUT_ROWS;
+  g.blocks = (u_out + g.rows - 1) / g.rows;
+  const int groups = (g.rows + RW - 1) / RW;
+  const long long row_bytes = (long long)u_in * itemsize;
+  // the warps' partial sums and the activations before the ring
+  const long long base =
+      OUT_FIXED + (long long)OUT_WARPS * g.rows * NC * 4 + NC * row_bytes;
+  for (int cg = (groups + OUT_STAGES - 1) / OUT_STAGES;; cg = 1) {
+    const int stages = (groups + cg - 1) / cg;
+    const int stage_rows = cg * RW < g.rows ? cg * RW : g.rows;
+    const long long stage_bytes = stage_rows * row_bytes;
+    long long fit = base < SMEM_LIMIT ? (SMEM_LIMIT - base) / stage_bytes : 0;
+    if (fit > OUT_STAGES) fit = OUT_STAGES;   // an mbarrier pair a slot
+    if (fit >= 1) {
+      g.route = 1;
+      g.stage_groups = cg;
+      g.stages = stages;
+      g.slots = (int)(fit < stages ? fit : stages);
+      g.smem = (int)(base + g.slots * stage_bytes);
+      return g;
+    }
+    if (cg == 1) return g;
+  }
+}
 
 // The cluster size of the cluster route for (D, U, itemsize), or 0 where
 // the head route takes the shape: QKV_CLUSTER (at most D), doubled up to
@@ -407,6 +496,195 @@ out_kernel(const T* __restrict__ a, const T* __restrict__ w,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(OUT_RING_THREADS)
+out_ring_kernel(const T* __restrict__ a, const T* __restrict__ w,
+                const T* __restrict__ bias, T* __restrict__ out, int n_tok,
+                int u_in, int u_out, OutGeo geo) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* bias_s = reinterpret_cast<float*>(smem + 128);        // [OUT_ROWS]
+  float* part_s = reinterpret_cast<float*>(smem + OUT_FIXED);  // [warps][rows][NC]
+  T* x_s = reinterpret_cast<T*>(smem + OUT_FIXED +
+                                OUT_WARPS * geo.rows * NC * 4);  // [NC][u_in]
+  const int cg = geo.stage_groups, slots = geo.slots;
+  const int stage_rows = min(cg * RW, geo.rows);
+  T* ring = x_s + (size_t)NC * u_in;            // [slots][stage_rows][u_in]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int o0 = blockIdx.x * geo.rows;         // this block's first row
+  const int rows = min(geo.rows, u_out - o0);
+  const int groups = (rows + RW - 1) / RW;
+  const int stages = (groups + cg - 1) / cg;    // of this block's slab
+  const bool walk = slots < stages;
+  // stage copies over the whole launch: once, or once a token chunk
+  const int total = walk ? (n_tok + NC - 1) / NC * stages : stages;
+  const int nvec = u_in / V;                    // 16-byte vectors a row
+  const uint32_t bar0 = smem_u32(smem);         // full[k] at bar0 + 8k
+  const uint32_t empty0 = bar0 + 8 * OUT_STAGES;
+  const uint32_t xbar = bar0 + 16 * OUT_STAGES;
+  // the bias of row threadIdx.x, loaded now and used after the products
+  const float bias_r =
+      bias && (int)threadIdx.x < rows ? to_f32(bias[o0 + threadIdx.x]) : 0.0f;
+
+  // the activations of the chunk from token n0, in OUT_X_COPIES pieces
+  // taken in an order rotated by the block, so that the blocks do not all
+  // ask L2 for the same lines at once
+  auto issue_x = [&](int n0) {
+    const int nc = min(NC, n_tok - n0);
+    const uint32_t bytes = (uint32_t)((size_t)nc * u_in * sizeof(T));
+    mbar_expect_tx(xbar, bytes);
+    const uint32_t v16 = bytes / 16;
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(a + (int64_t)n0 * u_in);
+    for (int k = 0; k < OUT_X_COPIES; ++k) {
+      const uint32_t q = (k + blockIdx.x) % OUT_X_COPIES;
+      const uint32_t b0 = q * v16 / OUT_X_COPIES * 16;
+      const uint32_t b1 = (q + 1) * v16 / OUT_X_COPIES * 16;
+      if (b1 > b0)
+        bulk_g2s(reinterpret_cast<unsigned char*>(x_s) + b0, src + b0,
+                 b1 - b0, xbar);
+    }
+  };
+  // stage copy `seq` (stage seq % stages) into slot seq % slots
+  auto issue = [&](int seq) {
+    const int slot = seq % slots, r0 = seq % stages * cg * RW;
+    const int r1 = min(rows, r0 + cg * RW);
+    const uint32_t bytes = (uint32_t)((size_t)(r1 - r0) * u_in * sizeof(T));
+    mbar_expect_tx(bar0 + 8 * slot, bytes);
+    bulk_g2s(ring + (size_t)slot * stage_rows * u_in,
+             w + (int64_t)(o0 + r0) * u_in, bytes, bar0 + 8 * slot);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < OUT_STAGES; ++k) {
+      mbar_init(bar0 + 8 * k, 1);
+      mbar_init(empty0 + 8 * k, OUT_WARPS);
+    }
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+    // the first chunk's activations and the ring's first stages, before
+    // the block's first barrier
+    issue_x(0);
+    for (int seq = 0; seq < slots && seq < total; ++seq) issue(seq);
+  }
+  __syncthreads();
+  for (int n0 = 0, it = 0; n0 < n_tok; n0 += NC, ++it) {
+    const int nc = min(NC, n_tok - n0);
+    if (threadIdx.x == 0 && it > 0) {
+      fence_proxy_async_smem();   // the last chunk's reads of x_s come first
+      issue_x(n0);
+    }
+    mbar_wait(xbar, it & 1);
+    // warp w sums the 16-byte vectors j of its share, (j / 32) % OUT_WARPS
+    // == w, over every row of a stage: one load of each activation vector
+    // serves all the stage's rows
+    for (int s = 0; s < stages; ++s) {
+      const int seq = walk ? it * stages + s : s;
+      const int slot = seq % slots;
+      const int g0 = s * cg, ng = min(cg, groups - g0);  // the stage's groups
+      // every warp waits, walking before it releases the stage, so that no
+      // release can count towards the slot's previous use
+      mbar_wait(bar0 + 8 * slot, (seq / slots) & 1);
+      const T* w_slot = ring + (size_t)slot * stage_rows * u_in;
+      float acc[OUT_GROUPS][RW * NC];
+#pragma unroll
+      for (int g = 0; g < OUT_GROUPS; ++g)
+#pragma unroll
+        for (int i = 0; i < RW * NC; ++i) acc[g][i] = 0.0f;
+      for (int j = lane + 32 * warp; j < nvec; j += 32 * OUT_WARPS) {
+        // every token's vector first, so that the loads issue together
+        float xv[NC][V];
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          if (n < nc) {
+            load16(x_s + (size_t)n * u_in + j * V, xv[n]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) xv[n][e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < OUT_GROUPS; ++g) {
+          if (g >= ng) continue;
+          float wv[RW][V];
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            if ((g0 + g) * RW + r < rows) {
+              load16(w_slot + (size_t)(g * RW + r) * u_in + j * V, wv[r]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < V; ++e) wv[r][e] = 0.0f;
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < NC; ++n)
+#pragma unroll
+            for (int r = 0; r < RW; ++r)
+#pragma unroll
+              for (int e = 0; e < V; ++e)
+                acc[g][r * NC + n] =
+                    fmaf(xv[n][e], wv[r][e], acc[g][r * NC + n]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < OUT_GROUPS; ++g) {
+        if (g >= ng) continue;
+        // row (g0 + g) * RW + lane / NC, token lane % NC
+        const float sum = transpose_sum(acc[g], lane);
+        const int r = (g0 + g) * RW + lane / NC, n = lane % NC;
+        if (r < rows && n < nc) part_s[(warp * rows + r) * NC + n] = sum;
+      }
+      if (walk) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+        if (threadIdx.x == 0 && seq + slots < total) {
+          // every warp has released the slot: refill it
+          mbar_wait(empty0 + 8 * slot, (seq / slots) & 1);
+          fence_proxy_async_smem();
+          issue(seq + slots);
+        }
+        __syncwarp();
+      }
+    }
+    if ((int)threadIdx.x < rows) bias_s[threadIdx.x] = bias_r;
+    __syncthreads();
+    // the shares of each row in a fixed order, then the bias; token n's
+    // rows are neighbouring addresses
+    for (int idx = threadIdx.x; idx < nc * rows; idx += OUT_RING_THREADS) {
+      const int n = idx / rows, r = idx % rows;
+      float v = 0.0f;
+      for (int p = 0; p < OUT_WARPS; ++p) v += part_s[(p * rows + r) * NC + n];
+      out[(int64_t)(n0 + n) * u_out + o0 + r] = from_f32<T>(v + bias_s[r]);
+    }
+    __syncthreads();  // x_s and part_s are rewritten next chunk
+  }
+}
+
+template <typename T>
+cudaError_t launch_out(const void* a, const void* w, const void* b,
+                       void* out, int n, int u_in, int u_out,
+                       cudaStream_t s) {
+  const T* at = static_cast<const T*>(a);
+  const T* wt = static_cast<const T*>(w);
+  const T* bt = static_cast<const T*>(b);
+  T* ot = static_cast<T*>(out);
+  const OutGeo geo = out_geometry(u_in, u_out, (int)sizeof(T));
+  if (geo.route == 0) {
+    const int warps = OUT_THREADS / 32;
+    out_kernel<T><<<(u_out + warps - 1) / warps, OUT_THREADS, 0, s>>>(
+        at, wt, bt, ot, n, u_in, u_out);
+    return cudaGetLastError();
+  }
+  auto kernel = out_ring_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<geo.blocks, OUT_RING_THREADS, geo.smem, s>>>(at, wt, bt, ot, n,
+                                                        u_in, u_out, geo);
+  return cudaGetLastError();
+}
+
 template <typename T, typename S, bool QUANT>
 cudaError_t launch_qkv(const void* x, const void* w, const void* b, void* q,
                        void* k, void* v, int n, int u, int heads, int d,
@@ -504,28 +782,32 @@ extern "C" int mxt_qkv_project(const void* x, const void* w_qkv,
   }
 }
 
+// K5b's shape for (U_in, U_out, activation dtype), written to geo[0..8]:
+// route (1 the ring, 0 the row route), rows a block owns, row groups a
+// stage, stages, ring slots, blocks, dynamic shared memory bytes and
+// threads. Returns -1 for a shape the entry refuses.
+extern "C" int mxt_out_geometry(int u_in, int u_out, int dtype, int* geo) {
+  if ((dtype != kF32 && dtype != kBF16) || u_in <= 0 || u_out <= 0 ||
+      (u_in * itemsize(dtype)) % 16)
+    return -1;
+  const OutGeo g = out_geometry(u_in, u_out, itemsize(dtype));
+  const int v[8] = {g.route, g.rows, g.stage_groups, g.stages, g.slots,
+                    g.blocks, g.smem, g.route ? OUT_RING_THREADS : OUT_THREADS};
+  for (int i = 0; i < 8; ++i) geo[i] = v[i];
+  return 0;
+}
+
 extern "C" int mxt_out_project(const void* a, const void* w_out,
                                const void* b_out, void* out, int n, int u_in,
                                int u_out, int dtype, void* stream) {
   if (n <= 0 || u_out <= 0) return 0;
-  const int warps = OUT_THREADS / 32;
-  const int blocks = (u_out + warps - 1) / warps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      out_kernel<float><<<blocks, OUT_THREADS, 0, s>>>(
-          static_cast<const float*>(a), static_cast<const float*>(w_out),
-          static_cast<const float*>(b_out), static_cast<float*>(out), n, u_in,
-          u_out);
-      break;
+      return (int)launch_out<float>(a, w_out, b_out, out, n, u_in, u_out, s);
     case kBF16:
-      out_kernel<__nv_bfloat16><<<blocks, OUT_THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(a),
-          static_cast<const __nv_bfloat16*>(w_out),
-          static_cast<const __nv_bfloat16*>(b_out),
-          static_cast<__nv_bfloat16*>(out), n, u_in, u_out);
-      break;
+      return (int)launch_out<__nv_bfloat16>(a, w_out, b_out, out, n, u_in,
+                                            u_out, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -68,6 +68,7 @@ _SIGNATURES = {
         "mxt_qkv_project": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "mxt_out_project": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
         "mxt_qkv_cluster": [_I, _I, _I],
+        "mxt_out_geometry": [_I, _I, _I, ctypes.POINTER(_I)],
     },
     "flash_attention": {
         "mxt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],

@@ -31,6 +31,17 @@ shared memory; where they do not fit even at 8, one block per (Q|K|V,
 head) streams the rows from device memory (the head
 route). :func:`qkv_cluster` reports the choice.
 
+K5b: block b owns R contiguous rows of W_out, one thread brings the
+chunk of up to 8 tokens of activations and the block's rows into shared
+memory by bulk copies through a ring of stages, each on an mbarrier, and
+each warp multiplies a share of U_in of every row of a stage from shared
+memory. At gpt_like's width (R 6, 128 blocks) the whole slab comes in
+one copy. Where a block's rows do not fit beside the chunk (f32 U_in
+4608) the ring walks them, a stage refilled as the warps release it;
+where not even one group of 4 rows fits, a warp per output feature
+streams its row from device memory (the row route).
+:func:`out_geometry` reports the route and the ring's shape.
+
 Gate: :func:`fused_decode_armed` reads ``MXNET_TPU_LLM_FUSED_DECODE``
 (``0``/``1``/``auto``, default ``auto``). ``auto`` arms for CUDA tensors
 and stays off on the CPU, as the reference's ``auto`` arms on the TPU
@@ -42,6 +53,8 @@ against the plain path; serving runs ``auto``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -52,7 +65,7 @@ from .paged_attention import paged_attention_kernel
 
 __all__ = ["fused_decode_armed", "fused_decode_step", "fused_qkv_project",
            "fused_out_project", "qkv_project_plain", "out_project_plain",
-           "qkv_cluster"]
+           "qkv_cluster", "out_geometry"]
 
 
 def fused_decode_armed(device: torch.device) -> bool:
@@ -125,6 +138,29 @@ def qkv_cluster(u, heads, dtype):
         u, heads, _build.dtype_code(dtype))
     _build.require(c >= 0, "qkv_cluster", f"units {u} / heads {heads}")
     return c
+
+
+# mxt_out_geometry's report, in its order
+_OUT_GEOMETRY = ("route", "rows", "stage_groups", "stages", "slots",
+                 "blocks", "smem", "threads")
+
+
+def out_geometry(u_in, u_out, dtype):
+    """K5b's shape on the card for (U_in, U_out, activation dtype)
+    (``mxt_out_geometry``): ``route`` ``"ring"`` or ``"row"``; on the
+    ring, the rows a block owns, the row groups of 4 rows a stage, the
+    stages of a block's slab, the ring's slots (``walks`` when fewer than
+    the stages), the blocks, the dynamic shared memory and the
+    threads."""
+    geo = (ctypes.c_int * len(_OUT_GEOMETRY))()
+    err = _build.load("fused_decode").mxt_out_geometry(
+        u_in, u_out, _build.dtype_code(dtype), geo)
+    _build.require(err == 0, "out_geometry",
+                   f"U_in {u_in}, U_out {u_out}, {dtype}")
+    out = dict(zip(_OUT_GEOMETRY, geo))
+    out["route"] = "ring" if out["route"] else "row"
+    out["walks"] = out["route"] == "ring" and out["slots"] < out["stages"]
+    return out
 
 
 def fused_qkv_project(x, w_qkv, b_qkv, *, heads, store_dtype):

@@ -528,6 +528,100 @@ def test_out_project_matches_jax():
                                     rtol=2e-5, atol=2e-5)
 
 
+def _out_ring(a, w, b, rows, stages, warps=8):
+    """The arithmetic of K5b's ring route in torch (f32): block k owns
+    weight rows [k*rows, (k+1)*rows) (the last block fewer), its row
+    groups of 4 rows come in ``stages`` copies of whole groups, and warp
+    p sums, over every row of a stage, the 16-byte vectors j of U_in with
+    (j // 32) % warps == p. The warps' sums of a row are added in warp
+    order, then the bias; tokens go in chunks of 8."""
+    n, u_in = a.shape
+    u_out = w.shape[0]
+    groups = -(-rows // 4)
+    cg = -(-groups // stages)                     # row groups a stage
+    vec = 16 // a.element_size()
+    share = torch.arange(u_in) // vec // 32 % warps
+    out = torch.empty(n, u_out)
+    for n0 in range(0, n, 8):
+        x = a[n0:n0 + 8].float()
+        for o0 in range(0, u_out, rows):
+            slab = w[o0:o0 + rows].float()
+            for r0 in range(0, slab.shape[0], cg * 4):     # a stage
+                ws = slab[r0:r0 + cg * 4]
+                y = torch.zeros(x.shape[0], ws.shape[0])
+                for p in range(warps):
+                    y = y + x[:, share == p] @ ws[:, share == p].T
+                if b is not None:
+                    y = y + b[o0 + r0:o0 + r0 + ws.shape[0]].float()
+                out[n0:n0 + 8, o0 + r0:o0 + r0 + ws.shape[0]] = y
+    return out.to(a.dtype)
+
+
+@pytest.mark.parametrize("kind", ["normal", "dyadic"])
+@pytest.mark.parametrize("n,u,rows,stages", [
+    (5, 292, 6, 2), (20, 292, 8, 2), (20, 292, 12, 4), (5, 292, 4, 1),
+    (20, 292, 16, 1)])
+def test_out_project_split_matches_jax_kernel(n, u, rows, stages, kind):
+    """The row ownership and share order of the CUDA K5b ring route,
+    emulated in torch, against the Pallas _out_kernel in interpret mode
+    at U 292 (no block size divides it: the last block is ragged; 73
+    vectors a row, so three of the eight warps share a row's sum), 5
+    tokens and 20 (three chunks of 8), one to three stages. Dyadic inputs
+    (exact in any summation order): byte-identical. Normal inputs: f32
+    sums of 292 terms in another order, at 2e-5."""
+    rng = onp.random.RandomState(19)
+    if kind == "dyadic":
+        a, w, b = (_dyadic(rng, (n, u), 4), _dyadic(rng, (u, u), 64),
+                   _dyadic(rng, (u,), 4))
+    else:
+        a = rng.randn(n, u).astype(onp.float32)
+        w = (rng.randn(u, u) * 0.1).astype(onp.float32)
+        b = rng.randn(u).astype(onp.float32)
+    want = onp.asarray(jfused.fused_out_project(
+        jnp.asarray(a), jnp.asarray(w), jnp.asarray(b), interpret=True))
+    got = _out_ring(_t(a), _t(w), _t(b), rows, stages).numpy()
+    if kind == "dyadic":
+        onp.testing.assert_array_equal(got, want)
+    else:
+        onp.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_out_geometry_reports_the_route(monkeypatch):
+    """out_geometry passes (U_in, U_out, dtype code) to mxt_out_geometry
+    (a stand-in library here) and names what it reports: the ring route
+    with its slab resident, the ring walking the rows (fewer slots than
+    stages), the row route; a refused shape raises."""
+    reports = {768: [1, 6, 1, 2, 2, 128, 50112, 256],
+               4096: [1, 6, 1, 2, 1, 683, 198336, 256],
+               8192: [0, 6, 0, 0, 0, 128, 0, 256]}
+
+    class Lib:
+        def __init__(self):
+            self.calls = []
+
+        def mxt_out_geometry(self, u_in, u_out, dtype, geo):
+            self.calls.append((u_in, u_out, dtype))
+            if u_in not in reports:
+                return -1
+            for i, v in enumerate(reports[u_in]):
+                geo[i] = v
+            return 0
+
+    lib = Lib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    ring = tfused.out_geometry(768, 768, torch.float32)
+    assert ring == dict(route="ring", rows=6, stage_groups=1, stages=2,
+                        slots=2, blocks=128, smem=50112, threads=256,
+                        walks=False)
+    walking = tfused.out_geometry(4096, 4096, torch.bfloat16)
+    assert walking["route"] == "ring" and walking["walks"]
+    row = tfused.out_geometry(8192, 768, torch.float32)
+    assert row["route"] == "row" and not row["walks"]
+    assert lib.calls == [(768, 768, 0), (4096, 4096, 1), (8192, 768, 0)]
+    with pytest.raises(Exception, match="out_geometry"):
+        tfused.out_geometry(770, 768, torch.float32)
+
+
 @pytest.mark.parametrize("store", ["float32", "int8"])
 def test_fused_decode_step_matches_jax(store):
     """The whole fused sublayer step (K5a -> pool write -> K4 -> K5b)
