@@ -20,9 +20,12 @@ NVIDIA H100.
 
 Phases (each asserts; any failure exits non-zero before the result line):
 
-1. Environment: the card's name and power limit, TF32 off, and the build
-   of every CUDA kernel from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together).
+1. Environment: the card's name and power limit, the matmul precision
+   policy set to ``highest`` (IEEE f32 in cuBLAS and cuDNN, 3xTF32 in the
+   attention kernels; every check below runs under it unless it names
+   the ``default`` policy, TF32), and the build of every CUDA kernel from
+   ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per source, all started
+   together).
 2. Kernel checks: each kernel of the serving path (K2 LayerNorm, K4 paged
    attention, K5a QKV projection + int8 KV quantize, K5b out projection)
    against its plain PyTorch version on the card, at the shapes the main
@@ -40,7 +43,11 @@ Phases (each asserts; any failure exits non-zero before the result line):
    forward must beat SDPA's forward, and their bound is that of the
    tensor cores they run on (three TF32 passes in f32), with the f32-FMA
    bound printed beside it; cuobjdump must find HMMA in every
-   instantiation. K4 is timed at phase 3's mid-decode lengths too, must
+   instantiation. The same three kernels on the ``default`` policy's
+   route, f32 in one TF32 pass (:func:`one_pass_checks`), are held
+   against the plain versions that round their operands to TF32 and
+   against the exact ones, run twice for the same bits, and timed against
+   their one-pass bound and SDPA under the same policy. K4 is timed at phase 3's mid-decode lengths too, must
    beat its plain version, and is held at the edges of its split
    (:func:`paged_edge_checks`). K2 is checked and timed on both of its
    routes at the decode, prefill and train shapes (the warp route through
@@ -65,23 +72,31 @@ Phases (each asserts; any failure exits non-zero before the result line):
 3. The main path: gpt_like at full width (vocab 32000, units 768, hidden
    3072, 12 layers, 12 heads, max_length 2048) with seeded numpy weights
    loaded through ``from_jax_params``, served by ``LLMEngine`` with its
-   defaults (int8 KV, block 16, 8 lanes) for 8 requests; every kernel's
-   launch count over that run must be exactly what the run's prefills and
-   decode steps imply.
+   defaults (int8 KV, block 16, 8 lanes) for 8 requests, after
+   ``warmup`` captured the decode step and the prompts' prefill buckets
+   as CUDA graphs; the served run replays them, and every kernel's
+   launch count over it must be exactly what its prefills and decode
+   steps imply.
 4. Output checks, at the served batch's mid-decode lengths: one paged
    decode step's logits with the kernels, and with
    ``MXNET_TPU_LLM_FUSED_DECODE=0`` (cuBLAS projections around K4),
-   against the same step on the plain path (``no_kernels``); and greedy
-   tokens of the paged engine (f32 KV) against the dense-cache
-   ``generate``.
-5. Decode-step time: the same decode step through the decode program,
-   device time against host time, kernels and plain.
+   against the same step on the plain path (``no_kernels``); greedy
+   tokens of the paged engine (f32 KV, graphs) against the dense-cache
+   ``generate``; one replay of the decode graph, and of a prefill
+   bucket's, against one eager call of the same program, bitwise in
+   tokens, pools and launches (:func:`replay_equals_eager`); a sampling
+   engine's graphs draw anew from its generator (:func:`sampling_check`).
+5. Step times: the same decode step replayed and eager, on the kernels
+   and on the plain path, and each served prefill bucket replayed and
+   eager, device time against host time.
 6. Train-step check: one full-width backward at B 2, L 1024 through the
-   kernels against the same under ``no_kernels`` (:func:`train_grad_check`).
+   kernels against the same under ``no_kernels``, and under the
+   ``default`` policy against ``highest`` (:func:`train_grad_check`).
 7. The train main path: the same gpt_like trains through
    ``SoftmaxCrossEntropyLoss`` and ``Trainer`` (SGD, momentum 0.9) on 8
-   sequences of 1024 seeded tokens, a warm-up step and 5 timed steps with
-   exact launch counts and a falling loss (:func:`train_phase`).
+   sequences of 1024 seeded tokens, under ``highest`` and then under
+   ``default``, each a warm-up step and 5 timed steps with exact launch
+   counts and a falling loss (:func:`train_phase`).
 8. The front-door path (:func:`frontdoor_phase`): the RMSNorm FFN stack at
    gpt_like's widths (12 blocks of x + Dense(768)(Dense(3072, gelu)(
    RMSNorm()(x))) and a final RMSNorm, every layer with a deferred shape)
@@ -89,11 +104,11 @@ Phases (each asserts; any failure exits non-zero before the result line):
    ``mx.np.random``, scaled per row by a user kernel compiled with
    ``mx.rtc.CudaModule`` (NVRTC), trained through ``autograd.record()``,
    ``L2Loss`` and ``Trainer(net.collect_params(), "adam")``: shapes
-   completed at the first forward, exactly 13 K2r launches per forward
-   (one RMSNorm per block and the final one) and one user-kernel launch
-   per step, a falling loss, a B 2 step's loss and
-   gradients against ``no_kernels``, and a bitwise ``.params`` round
-   trip. Its kernels (K2r RMSNorm, kernel R through two user sources) are
+   completed at the first forward, then under each policy exactly 13 K2r
+   launches per forward (one RMSNorm per block and the final one) and
+   one user-kernel launch per step and a falling loss, a B 2 step's loss
+   and gradients against ``no_kernels`` and under ``default`` against
+   ``highest``, and a bitwise ``.params`` round trip. Its kernels (K2r RMSNorm, kernel R through two user sources) are
    checked in phase 2 (:func:`frontdoor_kernel_checks`).
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
@@ -140,6 +155,16 @@ KERNELS = {
     "flash_attention_bwd_dq": ("mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
                                "mxnet_tpu/ops/pallas/flash_attention.py:379"),
     "flash_attention_bwd_dkv": (
+        "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "mxnet_tpu/ops/pallas/flash_attention.py:432"),
+    # the same three kernels on the default matmul policy's route: f32 in
+    # one TF32 pass (OpsTF32)
+    "flash_attention_fwd_tf32": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                                 "mxnet_tpu/ops/pallas/flash_attention.py:144"),
+    "flash_attention_bwd_dq_tf32": (
+        "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "mxnet_tpu/ops/pallas/flash_attention.py:379"),
+    "flash_attention_bwd_dkv_tf32": (
         "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
         "mxnet_tpu/ops/pallas/flash_attention.py:432"),
     "cross_entropy_lse": ("mxnet_tpu_torch/csrc/cross_entropy.cu",
@@ -245,16 +270,17 @@ def bound_ms(nbytes, flops):
 
 
 def kernel_name(mangled):
-    """A template kernel's mangled name as name<T, DP>; others as they
-    are."""
+    """A template kernel's mangled name as name<T, DP>, with ", 1-pass"
+    for the attention kernels' one-TF32-pass instantiations; others as
+    they are."""
 
     t = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f|6__half)"
-                  r"Li(\d+)E", mangled)
+                  r"Li(\d+)E(Lb1E)?", mangled)
     if t is None:
         return mangled
     ty = {"f": "float", "13__nv_bfloat16": "bf16",
           "6__half": "half"}[t.group(2)]
-    return f"{t.group(1)}<{ty}, {t.group(3)}>"
+    return f"{t.group(1)}<{ty}, {t.group(3)}{', 1-pass' if t.group(4) else ''}>"
 
 
 def ptxas_summary(log):
@@ -344,27 +370,28 @@ def bulk_copy_sass_check(path):
     return found
 
 
-def tc_bound_ms(nbytes, flops, dtype):
+def tc_bound_ms(nbytes, flops, dtype, passes=3):
     """The tensor-core bound of the attention kernels (K1 forward, K1c,
-    K1d): f32 operands take three TF32 passes (hi.hi + hi.lo + lo.hi) at
-    495 TFLOP/s, bf16 one pass at 989."""
-    passes, rate = (3, TF32_FLOP_S) if dtype == "float32" else (1,
-                                                                 BF16_FLOP_S)
+    K1d): f32 operands take ``passes`` TF32 passes at 495 TFLOP/s (three,
+    hi.hi + hi.lo + lo.hi, under the full-f32 policy; one under the
+    default), bf16 one pass at 989."""
+    passes, rate = ((passes, TF32_FLOP_S) if dtype == "float32"
+                    else (1, BF16_FLOP_S))
     b, f = nbytes / HBM_BYTES_S, passes * flops / rate
     return 1e3 * max(b, f), ("bytes" if b >= f else "operations")
 
 
-def use_tc_bound(row, nbytes, flops, dtype):
+def use_tc_bound(row, nbytes, flops, dtype, passes=3):
     """Make an attention kernel's row's ``bound_ms`` and ``bound_by``
     (those of the kernels line) the tensor-core bound, the rate these
     kernels multiply at, keep the f32-FMA bound beside it as
     ``fma_bound_ms``, and print both with the roofline share against
     each."""
-    tms, tby = tc_bound_ms(nbytes, flops, dtype)
+    tms, tby = tc_bound_ms(nbytes, flops, dtype, passes)
     row["fma_bound_ms"], row["fma_bound_by"] = row["bound_ms"], row["bound_by"]
     row["bound_ms"], row["bound_by"] = tms, tby
-    rate = ("3 TF32 passes at 495" if dtype == "float32"
-            else "1 bf16 pass at 989")
+    rate = (f"{passes} TF32 pass{'es' if passes > 1 else ''} at 495"
+            if dtype == "float32" else "1 bf16 pass at 989")
     print(f"{row['name']} {row['case']}: bound_ms {tms:.6f} ({tby}, tensor "
           f"cores, {rate} TFLOP/s; the kernels line's bound_ms, roofline "
           f"share {tms / row['ms']:.3f}) f32-FMA bound "
@@ -1022,19 +1049,27 @@ def attention_cost(b, h, lq, lk, d, causal, itemsize):
             "dkv": (2 * q_t + 2 * kv_t + 2 * vec + 2 * kv_t, 8 * d * pairs)}
 
 
-def flash_case(torch, kfa, q, k, v, go, causal):
-    """K1 forward, K1c and K1d and their plain versions on one input set,
-    each kernel fed the kernel's own upstream results and each plain
-    version the same. Returns {part: (errors, max |ref|)}."""
+def flash_case(torch, kfa, q, k, v, go, causal, policy="highest",
+               round_tf32=False):
+    """K1 forward, K1c and K1d under the matmul ``policy`` and their plain
+    versions on one input set, each kernel fed the kernel's own upstream
+    results and each plain version the same. The plain versions run in
+    IEEE f32, their operands rounded to TF32 with ``round_tf32``.
+    Returns {part: (errors, max |ref|)}."""
+    from mxnet_tpu_torch.base import matmul_precision_scope
+
     with torch.no_grad():
-        out, lse = kfa.flash_forward(q, k, v, causal)
-        pout, plse = kfa.flash_forward_plain(q, k, v, causal)
-        dq, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, causal)
-        pdq, pdelta = kfa.flash_backward_dq_plain(q, k, v, out, lse, go,
-                                                  causal)
-        dk, dv = kfa.flash_backward_dkv(q, k, v, go, lse, delta, causal)
-        pdk, pdv = kfa.flash_backward_dkv_plain(q, k, v, go, lse, delta,
-                                                causal)
+        with matmul_precision_scope(policy):
+            out, lse = kfa.flash_forward(q, k, v, causal)
+            dq, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, causal)
+            dk, dv = kfa.flash_backward_dkv(q, k, v, go, lse, delta, causal)
+        with matmul_precision_scope("highest"):
+            pout, plse = kfa.flash_forward_plain(q, k, v, causal,
+                                                 round_tf32=round_tf32)
+            pdq, pdelta = kfa.flash_backward_dq_plain(
+                q, k, v, out, lse, go, causal, round_tf32=round_tf32)
+            pdk, pdv = kfa.flash_backward_dkv_plain(
+                q, k, v, go, lse, delta, causal, round_tf32=round_tf32)
     live = plse > -1e29                   # rows that see a key
     res = {}
     for part, pairs in (("out", ((out, pout),)),
@@ -1219,6 +1254,105 @@ def train_kernel_checks(torch, dev):
     cases.append({"name": "cross_entropy_lse", "case": "bf16",
                   "max_abs_err": err, "limit": 1e-5})
     return rows, cases, extra
+
+
+# The one-pass route (the default policy, f32 operands rounded once to
+# TF32), as a share of the reference's largest magnitude. Against the
+# plain version that rounds the same operands: the forward rounds p
+# relative to the running row max, the plain version relative to the
+# final one, so each p may land one TF32 step (2^-11) apart; averaged
+# over the keys that was 4.5e-5 in a CPU emulation at L 512, and 2e-4
+# leaves 4x. Against the exact plain version: operands carry 10
+# mantissa bits, each product is off by up to 2^-10 and sums of up to
+# 1024 such terms add; 3e-4 to 6.7e-4 in that emulation, and 2e-3
+# leaves 3x.
+TF32_TOL, TF32_EXACT_TOL = 2e-4, 2e-3
+
+
+def one_pass_checks(torch, dev):
+    """Phase 2, the default policy's route: K1 forward, K1c and K1d in
+    one TF32 pass at the train step's (8, 12, 1024, 64) causal f32,
+    against the plain versions that round their operands to TF32
+    (``TF32_TOL``) and against the exact ones (``TF32_EXACT_TOL``), run
+    twice for bitwise-equal results, timed under the default policy
+    against their one-pass bound, with SDPA's forward and backward under
+    the same policy (TF32 allowed) as library yardsticks. Returns the
+    three rows of the kernels line."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    b, h, l, d = 8, 12, 1024, 64
+    q, k, v, go = (torch.randn(b, h, l, d, generator=g, device=dev)
+                   for _ in range(4))
+    near = flash_case(torch, kfa, q, k, v, go, True, "default", True)
+    exact = flash_case(torch, kfa, q, k, v, go, True, "default", False)
+    cost = attention_cost(b, h, l, l, d, True, 4)
+    shape = f"B{b} H{h} L{l} D{d} causal f32, one TF32 pass"
+    rows = []
+    with torch.no_grad(), matmul_precision_scope("default"):
+        check(kfa.kernel_route(torch.float32) == "tf32",
+              "the default policy does not route f32 to one TF32 pass")
+        out, lse = kfa.flash_forward(q, k, v, True)
+        dq, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, True)
+        for name, part, kernel, plain, lib in (
+                ("flash_attention_fwd_tf32", "out",
+                 lambda i: kfa.flash_forward(q, k, v, True),
+                 lambda i: kfa.flash_forward_plain(q, k, v, True,
+                                                   round_tf32=True),
+                 lambda i: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True)),
+                ("flash_attention_bwd_dq_tf32", "dq",
+                 lambda i: kfa.flash_backward_dq(q, k, v, out, lse, go,
+                                                 True),
+                 lambda i: kfa.flash_backward_dq_plain(
+                     q, k, v, out, lse, go, True, round_tf32=True), None),
+                ("flash_attention_bwd_dkv_tf32", "dkv",
+                 lambda i: kfa.flash_backward_dkv(q, k, v, go, lse, delta,
+                                                  True),
+                 lambda i: kfa.flash_backward_dkv_plain(
+                     q, k, v, go, lse, delta, True, round_tf32=True),
+                 None)):
+            errs = {}
+            for which, res in (("near", near), ("exact", exact)):
+                err, scale = res[part]
+                if part == "out":
+                    err = max(err, res["lse"][0] / max(res["lse"][1], 1.0))
+                errs[which] = (err, scale)
+            xerr, xscale = errs["exact"]
+            xlim = TF32_EXACT_TOL * max(xscale, 1.0)
+            print(f"{name} {shape}: max_abs_err against the exact plain "
+                  f"version {xerr:.3e} (limit {xlim:.3e})", flush=True)
+            check(xerr <= xlim, f"{name}: against the exact plain version "
+                  f"{xerr} > {xlim}")
+            nbytes, flops = cost["fwd" if part == "out" else part]
+            err, scale = errs["near"]
+            row = measure(name, shape, err, TF32_TOL * max(scale, 1.0),
+                          kernel, plain, lib, nbytes, flops)
+            row.update(exact_err=xerr, exact_limit=xlim)
+            use_tc_bound(row, nbytes, flops, "float32", passes=1)
+            rows.append(row)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            sdpa_bwd = time_ms(lambda i: torch.autograd.grad(
+                o, (qs, ks, vs), go, retain_graph=True), iters=20)[0]
+        for row in rows[1:]:
+            row["library_ms"] = sdpa_bwd     # one call for dQ, dK and dV
+        runs = [kfa.flash_forward(q, k, v, True)
+                + kfa.flash_backward_dq(q, k, v, out, lse, go, True)
+                + kfa.flash_backward_dkv(q, k, v, go, lse, delta, True)
+                for _ in range(2)]
+    same = [torch.equal(a, b_) for a, b_ in zip(*runs)]
+    print(f"one TF32 pass at B{b} H{h} L{l} D{d}: out, lse, dq, delta, dk, "
+          f"dv bitwise equal on two runs {same}; SDPA backward with TF32 "
+          f"allowed {sdpa_bwd:.5f} ms against K1c + K1d "
+          f"{rows[1]['ms'] + rows[2]['ms']:.5f}", flush=True)
+    check(all(same), f"one-pass K1 not deterministic: {same}")
+    return rows
 
 
 def bf16_times(torch, kfa, q, k, v, go):
@@ -1427,6 +1561,61 @@ def ffn_stack(gluon, layers=FD_LAYERS, units=FD_UNITS, hidden=FD_HIDDEN):
     return net
 
 
+def frontdoor_steps(torch, dev, card, wrappers, step, profile, policy):
+    """Phase 8's timed steps under the matmul ``policy`` (set by the
+    caller): a warm-up step, then 5 timed steps with exact launch counts
+    and a loss that falls below the warm-up's."""
+    first = step().mean().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    losses, host_ms, span_ms = [], [], []
+    for _ in range(FD_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        span_ms.append(start.elapsed_time(end))
+        losses.append(loss.mean().item())
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers},
+                rms_norm_fwd=FD_STEPS * (FD_LAYERS + 1),
+                rtc_row_absmax_scale=FD_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)) and np.isfinite(first),
+          f"non-finite loss {first} {losses}")
+    check(losses[-1] < first, f"loss did not fall: {first} -> {losses}")
+    check(counts == want, f"front-door launches {counts} != {want}")
+    step_ms = float(np.mean(host_ms))
+    out = {"warmup_loss": first, "losses": losses, "host_ms": host_ms,
+           "device_span_ms": span_ms, "step_ms": step_ms,
+           "tok_s": FD_B * FD_L / step_ms * 1e3, "max_memory_allocated": peak,
+           "launches": counts, "policy": policy}
+    print(f"front door on {card}, matmul precision {policy}: RMSNorm FFN "
+          f"stack ({FD_LAYERS} blocks, {FD_UNITS}/{FD_HIDDEN}) B{FD_B} "
+          f"L{FD_L} Adam lr 1e-3, L2Loss; loss {first:.6f} (warm-up) -> "
+          f"{[round(v, 6) for v in losses]}; step ms (host wall to a "
+          f"synchronise) {[round(v, 3) for v in host_ms]}, device span ms "
+          f"(CUDA events) {[round(v, 3) for v in span_ms]}; "
+          f"{out['tok_s']:.1f} tokens/s; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; launches over {FD_STEPS} steps {counts}",
+          flush=True)
+    if profile:
+        dev_ms, wall_ms = profile_train_step(
+            torch, step, f"frontdoor_profile_{policy}.txt")
+        out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms}
+        print(f"front-door step ({policy}), profiler: device ms summed over "
+              f"kernels {'not measured' if dev_ms is None else f'{dev_ms:.3f}'}"
+              f", wall ms {wall_ms:.3f}"
+              + ("" if dev_ms is None else
+                 f", device busy {dev_ms / wall_ms:.3f}"), flush=True)
+    return out
+
+
 def frontdoor_phase(torch, card, wrappers, scale_kernel, profile):
     """Phase 8: the front-door path. The RMSNorm FFN stack is built with
     deferred shapes, initialized with Xavier on gpu(0), and trained with
@@ -1440,6 +1629,7 @@ def frontdoor_phase(torch, card, wrappers, scale_kernel, profile):
 
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
     from mxnet_tpu_torch.ops import nn as tnn
 
     dev = mx.context.resolve_device(None)
@@ -1482,52 +1672,12 @@ def frontdoor_phase(torch, card, wrappers, scale_kernel, profile):
           f"parameters before its first forward; after it, {n_params} "
           f"parameters on {params['0.ffn_1.weight'].data().device} "
           f"(warm-up step {warm_s:.2f} s)", flush=True)
-    torch.cuda.reset_peak_memory_stats(dev)
-    for w in wrappers.values():
-        w.launches = 0
-    losses, host_ms, span_ms = [], [], []
-    for _ in range(FD_STEPS):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        start.record()
-        loss = step()
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append(1e3 * (time.perf_counter() - t0))
-        span_ms.append(start.elapsed_time(end))
-        losses.append(loss.mean().item())
-    counts = {k: w.launches for k, w in wrappers.items()}
-    want = dict({k: 0 for k in wrappers},
-                rms_norm_fwd=FD_STEPS * (FD_LAYERS + 1),
-                rtc_row_absmax_scale=FD_STEPS)
-    peak = torch.cuda.max_memory_allocated(dev)
-    check(all(np.isfinite(losses)) and np.isfinite(first),
-          f"non-finite loss {first} {losses}")
-    check(losses[-1] < first, f"loss did not fall: {first} -> {losses}")
-    check(counts == want, f"front-door launches {counts} != {want}")
-    step_ms = float(np.mean(host_ms))
     out = {"batch": FD_B, "seq": FD_L, "params": n_params,
-           "warmup_loss": first, "losses": losses, "host_ms": host_ms,
-           "device_span_ms": span_ms, "step_ms": step_ms,
-           "tok_s": FD_B * FD_L / step_ms * 1e3, "max_memory_allocated": peak,
-           "launches": counts, "card": card}
-    print(f"front door on {card}: RMSNorm FFN stack ({FD_LAYERS} blocks, "
-          f"{FD_UNITS}/{FD_HIDDEN}) B{FD_B} L{FD_L} Adam lr 1e-3, L2Loss; "
-          f"loss {first:.6f} (warm-up) -> {[round(v, 6) for v in losses]}; "
-          f"step ms (host wall to a synchronise) "
-          f"{[round(v, 3) for v in host_ms]}, device span ms (CUDA events) "
-          f"{[round(v, 3) for v in span_ms]}; {out['tok_s']:.1f} tokens/s; "
-          f"max_memory_allocated {peak / 2**30:.3f} GiB; launches over "
-          f"{FD_STEPS} steps {counts}", flush=True)
-    if profile:
-        dev_ms, wall_ms = profile_train_step(torch, step,
-                                             "frontdoor_profile.txt")
-        out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms}
-        print(f"front-door step, profiler: device ms summed over kernels "
-              f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'}, "
-              f"wall ms {wall_ms:.3f}"
-              + ("" if dev_ms is None else
-                 f", device busy {dev_ms / wall_ms:.3f}"), flush=True)
+           "warmup_loss": first, "card": card}
+    for policy in ("highest", "default"):
+        with matmul_precision_scope(policy):
+            out[policy] = frontdoor_steps(torch, dev, card, wrappers, step,
+                                          profile, policy)
 
     # B 2 through the kernels against no_kernels -----------------------------
     inp = row_scale(scale_kernel, x[:2].reshape(2 * FD_L, FD_UNITS)).reshape(
@@ -1563,6 +1713,10 @@ def frontdoor_phase(torch, card, wrappers, scale_kernel, profile):
         if name.endswith("gamma"):
             check(gk.abs().max().item() > 0, f"{name}: zero gradient")
     check(worst <= 1e-3, f"gradient {worst_name}: {worst} > 1e-3")
+    with matmul_precision_scope("default"):
+        loss_d, grad_d, _ = grads()
+    out["default_vs_highest"] = policy_diff(torch, "front door B2", loss_d,
+                                            grad_d, loss_k, grad_k)
     n_gamma = sum(n.endswith("gamma") for n in grad_p)
     print(f"front door B2 L{FD_L}, kernels vs no_kernels on the card: loss "
           f"{loss_k.tolist()} vs {loss_p.tolist()} (max err "
@@ -1639,6 +1793,129 @@ def decode_state(torch, model, lengths, gen):
     toks = torch.randint(0, CFG["vocab_size"], (r, 1), generator=gen,
                          device=dev, dtype=torch.int32)
     return toks, pk, pv, table, pos
+
+
+def replay_equals_eager(torch, model, run, args, gen, prompt, wrappers):
+    """Phase 4: one replay of the decode graph gives bitwise the next
+    tokens and pools of one eager call of the same program on the same
+    inputs, with the same launches; the same for the prefill of
+    ``prompt`` in its bucket. Each graph is captured first (its capture
+    runs the step once), the pools are reset in place, and then it
+    replays once."""
+    from mxnet_tpu_torch.gluon.model_zoo.generation import (
+        paged_prefill_program)
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    out = {}
+    toks, pk, pv, table, pos = args
+    bs = 16
+    p = len(prompt)
+    bucket = bs * max(1, 1 << (-(-p // bs) - 1).bit_length())
+    nb = bucket // bs
+    prog = paged_prefill_program(model, prefill_len=bucket, block_size=bs,
+                                 kv_cache_dtype="int8")
+    ids = torch.arange(nb, dtype=torch.int64)
+    padded = torch.zeros((1, bucket), dtype=torch.int32)
+    padded[0, :p] = torch.from_numpy(prompt)
+    fresh = model.init_block_pool(nb + 1, bs, dtype="int8")
+    cases = (("decode", run, (pk, pv),
+              lambda call, k_, v_: call(toks, k_, v_, table, pos, gen)),
+             (f"prefill bucket {bucket}", prog, fresh,
+              lambda call, k_, v_: call(padded, p - 1, k_, v_, ids, gen)))
+    for name, program, pools, call in cases:
+        gk, gv = (t.clone() for t in pools)
+        call(program, gk, gv)                     # captures
+        gk.copy_(pools[0])
+        gv.copy_(pools[1])
+        zero()
+        got = call(program, gk, gv)[0].clone()
+        replay_counts = counts()
+        ek, ev = (t.clone() for t in pools)
+        zero()
+        want = call(program.eager, ek, ev)[0]
+        eager_counts = counts()
+        same = {"tokens": torch.equal(got, want),
+                "pool_k": torch.equal(gk, ek), "pool_v": torch.equal(gv, ev),
+                "launches": replay_counts == eager_counts}
+        print(f"{name}: one replay against one eager call, bitwise equal "
+              f"{same}; launches {replay_counts}", flush=True)
+        check(all(same.values()), f"{name}: replay differs from eager {same}")
+        out[name] = dict(same, launches=replay_counts)
+        del gk, gv, ek, ev
+    return out
+
+
+def sampling_check(torch, model, prompt):
+    """A sampling engine (top-k 50, temperature 0.8) replays graphs that
+    draw from its generator: two requests for the same prompt give tokens
+    in the vocabulary that differ, and the generator's offset advanced."""
+    from mxnet_tpu_torch.serving.llm import LLMEngine
+
+    with LLMEngine(model, greedy=False, temperature=0.8, top_k=50,
+                   seed=3) as eng:
+        eng.warmup([len(prompt)])
+        state = eng._gen.get_state().clone()
+        outs = [eng.generate(prompt, 8) for _ in range(2)]
+        moved = not torch.equal(state, eng._gen.get_state())
+        graphs = eng.stats()["graphs"]
+    ok = all(((o >= 0) & (o < CFG["vocab_size"])).all() for o in outs)
+    print(f"sampling engine (top-k 50, temperature 0.8) replaying graphs: "
+          f"{outs[0].tolist()} then {outs[1].tolist()}; generator moved "
+          f"{moved}; graphs {graphs}", flush=True)
+    check(ok and moved and not np.array_equal(outs[0], outs[1]),
+          "sampling through the graphs does not draw anew")
+    return {"tokens": [o.tolist() for o in outs], "generator_moved": moved,
+            "graphs": graphs}
+
+
+def prefill_times(torch, model, card, prompts, buckets):
+    """Phase 5: each bucket of the served run's prefills, replayed and
+    eager, device against host ms (int8 pools, a prompt of the served
+    run that falls in the bucket)."""
+    from mxnet_tpu_torch.gluon.model_zoo.generation import (
+        paged_prefill_program)
+
+    dev = model.word_embed.weight.data().device
+    gen = torch.Generator(device=dev)
+    bs, out = 16, {}
+    for bucket in buckets:
+        prompt = next((q for q in prompts
+                       if bucket // 2 < len(q) <= bucket), None)
+        if prompt is None:
+            continue
+        p, nb = len(prompt), bucket // bs
+        prog = paged_prefill_program(model, prefill_len=bucket,
+                                     block_size=bs, kv_cache_dtype="int8")
+        pk, pv = model.init_block_pool(nb + 1, bs, dtype="int8")
+        # inputs on the card: a copy from pageable host memory would wait
+        # for time_ms's spin kernel
+        ids = torch.arange(nb, dtype=torch.int64, device=dev)
+        last = torch.tensor([p - 1], dtype=torch.int64, device=dev)
+        padded = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+        padded[0, :p] = torch.from_numpy(prompt).to(dev)
+        row = {"prompt": p}
+        for mode, call in (("replayed", prog), ("eager", prog.eager)):
+            dev_ms, host_ms = time_ms(
+                lambda i: call(padded, last, pk, pv, ids, gen), iters=10,
+                warmup=2)
+            row[mode] = {"device_ms": dev_ms, "host_ms": host_ms,
+                         "device_busy": dev_ms / host_ms}
+        out[bucket] = row
+        print(f"prefill bucket {bucket} (prompt {p}) on {card}: replayed "
+              f"device_ms {row['replayed']['device_ms']:.4f} host_ms "
+              f"{row['replayed']['host_ms']:.4f} (busy "
+              f"{row['replayed']['device_busy']:.3f}); eager device_ms "
+              f"{row['eager']['device_ms']:.4f} host_ms "
+              f"{row['eager']['host_ms']:.4f} (busy "
+              f"{row['eager']['device_busy']:.3f})", flush=True)
+        del pk, pv
+    return out
 
 
 def profile_decode(torch, run, args, gen):
@@ -1723,7 +2000,10 @@ def train_grad_check(torch, model, dev, wrappers):
     agree to 1e-5 relative and each parameter's gradient to 1e-3 of its
     largest magnitude (f32 sums in another order through 12 layers and
     the 32000-way softmax); no kernel launches under ``no_kernels``; every
-    LayerNorm gain gets a non-zero gradient through K2's backward."""
+    LayerNorm gain gets a non-zero gradient through K2's backward. Then
+    the same step under the default policy against the kernels' step
+    (:func:`policy_diff`)."""
+    from mxnet_tpu_torch.base import matmul_precision_scope
     from mxnet_tpu_torch.ops import nn as tnn
 
     gen = torch.Generator(device=dev)
@@ -1766,8 +2046,50 @@ def train_grad_check(torch, model, dev, wrappers):
           f"have non-zero gradients; kernel launches {counts_k}",
           flush=True)
     check(worst <= 1e-3, f"gradient {worst_name}: {worst} > 1e-3")
+    with matmul_precision_scope("default"):
+        loss_d, grad_d, counts_d = grads()
+    policy = policy_diff(torch, "gpt_like B2", loss_d, grad_d, loss_k, grad_k)
+    check(counts_d == TRAIN_LAUNCHES,
+          f"default-policy step launched {counts_d} != {TRAIN_LAUNCHES}")
     return {"loss_err": loss_err, "worst_grad_ratio": worst,
-            "worst_grad": worst_name, "launches": counts_k}
+            "worst_grad": worst_name, "launches": counts_k,
+            "default_vs_highest": policy}
+
+
+# The default policy's step (cuBLAS and K1 in one TF32 pass) against the
+# "highest" step at the same weights and batch, as a share of the
+# highest step's values. Each product's operands keep 10 mantissa bits
+# (2^-11 relative rounding), so a matmul output is off by about 1e-3 of
+# its magnitude; the loss, a mean over thousands of rows, moves far less
+# (1e-3 relative leaves room), and the gradients carry the error
+# through 12 layers forward and back and the 32000-way softmax: 5e-2 of
+# each gradient's largest magnitude.
+POLICY_LOSS_TOL, POLICY_GRAD_TOL = 1e-3, 5e-2
+
+
+def policy_diff(torch, what, loss_d, grad_d, loss_h, grad_h):
+    """Hold a default-policy step's loss and gradients against the
+    highest-policy step's (``POLICY_LOSS_TOL``, ``POLICY_GRAD_TOL``)."""
+    loss_err = ((loss_d - loss_h).abs().max()
+                / loss_h.abs().max()).item()
+    worst, worst_name = 0.0, None
+    for name, gh in grad_h.items():
+        gd = grad_d[name]
+        check(torch.isfinite(gd).all().item(), f"{name}: non-finite grad")
+        ratio = ((gd - gh).abs().max() / gh.abs().max()).item()
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    print(f"{what}, the default policy (TF32) against highest at the same "
+          f"weights: loss relative err {loss_err:.3e} (limit "
+          f"{POLICY_LOSS_TOL:g}); {len(grad_h)} gradients, worst max|err| "
+          f"/ max|g| {worst:.3e} ({worst_name}, limit {POLICY_GRAD_TOL:g})",
+          flush=True)
+    check(loss_err <= POLICY_LOSS_TOL, f"{what}: default-policy loss "
+          f"{loss_err} from highest")
+    check(worst <= POLICY_GRAD_TOL, f"{what}: default-policy gradient "
+          f"{worst_name} {worst} from highest")
+    return {"loss_rel_err": loss_err, "worst_grad_ratio": worst,
+            "worst_grad": worst_name}
 
 
 def profile_train_step(torch, step, fname="train_profile.txt"):
@@ -1795,11 +2117,12 @@ def profile_train_step(torch, step, fname="train_profile.txt"):
     return (dev_us / 1e3 if dev_us else None), wall_ms
 
 
-def train_phase(torch, model, dev, card, wrappers, profile):
+def train_phase(torch, model, dev, card, wrappers, profile, policy):
     """Phase 7: gpt_like trains at full width through
     SoftmaxCrossEntropyLoss and Trainer (SGD, momentum 0.9, lr 0.01) on
-    one seeded batch of 8 x 1024 tokens: one warm-up step, then 5 timed
-    steps with exact launch counts and a falling loss."""
+    one seeded batch of 8 x 1024 tokens, run by the caller under the
+    matmul ``policy`` (named in the results): one warm-up step, then 5
+    timed steps with exact launch counts and a falling loss."""
     from mxnet_tpu_torch.gluon import Trainer
 
     gen = torch.Generator(device=dev)
@@ -1841,8 +2164,10 @@ def train_phase(torch, model, dev, card, wrappers, profile):
     out = {"batch": TRAIN_B, "seq": TRAIN_L, "warmup_loss": first,
            "losses": losses, "host_ms": host_ms, "device_span_ms": span_ms,
            "step_ms": step_ms, "tok_s": TRAIN_B * TRAIN_L / step_ms * 1e3,
-           "max_memory_allocated": peak, "launches": counts, "card": card}
-    print(f"train on {card}: gpt_like {CFG} B{TRAIN_B} L{TRAIN_L} SGD "
+           "max_memory_allocated": peak, "launches": counts, "card": card,
+           "policy": policy}
+    print(f"train on {card}, matmul precision {policy}: gpt_like {CFG} "
+          f"B{TRAIN_B} L{TRAIN_L} SGD "
           f"momentum 0.9 lr 0.01; loss {first:.5f} (warm-up) -> "
           f"{[round(x, 5) for x in losses]}; step ms (host wall to a "
           f"synchronise) {[round(x, 3) for x in host_ms]}, device span ms "
@@ -1851,7 +2176,8 @@ def train_phase(torch, model, dev, card, wrappers, profile):
           f"{peak / 2**30:.3f} GiB; launches over {TRAIN_STEPS} steps "
           f"{counts}", flush=True)
     if profile:
-        dev_ms, wall_ms = profile_train_step(torch, step)
+        dev_ms, wall_ms = profile_train_step(
+            torch, step, f"train_profile_{policy}.txt")
         out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms}
         print(f"train step, profiler: device ms summed over kernels "
               f"{'not measured' if dev_ms is None else f'{dev_ms:.3f}'}, "
@@ -2169,6 +2495,9 @@ def main(argv):
         print("chip_smoke: torch.cuda.is_available() is false — this run "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    from mxnet_tpu_torch.base import (matmul_precision,
+                                      matmul_precision_scope,
+                                      set_matmul_precision)
     from mxnet_tpu_torch.convert import from_jax_params
     from mxnet_tpu_torch.gluon.model_zoo.bert import gpt_like
     from mxnet_tpu_torch.gluon.model_zoo.generation import (
@@ -2187,8 +2516,12 @@ def main(argv):
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {count} device(s), device 0 = {kind}",
           flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # every check runs in IEEE f32, as the reference's tests pin
+    # "highest"; the default policy's paths set it where they run
+    set_matmul_precision("highest")
+    print(f"matmul precision policy {matmul_precision()} (cuBLAS "
+          f"{torch.backends.cuda.matmul.fp32_precision}, cuDNN conv "
+          f"{torch.backends.cudnn.conv.fp32_precision})", flush=True)
     # the plain versions' half-precision products accumulate in f32
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
@@ -2203,10 +2536,11 @@ def main(argv):
             print(f"  ptxas[{name}] {fn}: {regs}; {spill}")
     results["build_s"] = build_s
     # the attention kernels must multiply on the tensor cores: HMMA in
-    # every instantiation of K1 forward (4), K1c and K1d (8)
+    # every instantiation of K1 forward (6: f32 in three TF32 passes and
+    # in one, bf16, each at D 64 and 128), K1c and K1d (12)
     results["sass_hmma"] = {}
-    for src, prefix, n in (("flash_attention", "flash_fwd_", 4),
-                           ("flash_attention_bwd", "flash_bwd_", 8)):
+    for src, prefix, n in (("flash_attention", "flash_fwd_", 6),
+                           ("flash_attention_bwd", "flash_bwd_", 12)):
         mma = sass_mma_counts(_build._lib_path(src))
         if mma is None:
             print(f"cuobjdump not found: SASS of {src} not inspected")
@@ -2232,6 +2566,7 @@ def main(argv):
     train_rows, results["train_variants"], results["attention"] = \
         train_kernel_checks(torch, dev)
     rows += train_rows
+    rows += one_pass_checks(torch, dev)
     fd_rows, results["frontdoor_variants"], user_module, results["rtc"] = \
         frontdoor_kernel_checks(torch, dev)
     rows += fd_rows
@@ -2258,7 +2593,13 @@ def main(argv):
                .astype(np.int32) for p in prompt_lens]
     wrappers = kernel_wrappers()
     with LLMEngine(model) as eng:                 # int8 KV, block 16, 8 lanes
-        # warm-up request: first-call costs stay out of the measured run
+        # the decode graph and the prompts' prefill buckets are captured
+        # ahead of traffic; a warm-up request keeps other first-call
+        # costs out of the measured run
+        t0 = time.perf_counter()
+        buckets = eng.warmup([len(p) for p in prompts])
+        warm_s = time.perf_counter() - t0
+        warm = eng.stats()["graphs"]
         eng.generate(prompts[0][:16], 4)
         before = eng.stats()
         for w in wrappers.values():
@@ -2269,6 +2610,11 @@ def main(argv):
         wall = time.perf_counter() - t0
         counts = {k: w.launches for k, w in wrappers.items()}
         after = eng.stats()
+    print(f"warmup: buckets {buckets}, {warm['captures']} graphs captured "
+          f"in {warm['capture_s']:.3f} s ({warm_s:.3f} s in warmup())",
+          flush=True)
+    check(warm["captures"] == len(buckets) + 1,
+          f"warmup captured {warm['captures']} graphs for {buckets}")
     for out in outs:
         check(out.shape == (NEW_TOKENS,), f"request returned {out.shape}")
         check(((out >= 0) & (out < CFG["vocab_size"])).all(),
@@ -2287,8 +2633,13 @@ def main(argv):
           f"expected {expected}", flush=True)
     check(prefills == len(prompts), f"{prefills} prefills")
     check(counts == expected, f"launch counts {counts} != {expected}")
+    replays = after["graphs"]["replays"] - before["graphs"]["replays"]
+    check(after["graphs"]["captures"] == before["graphs"]["captures"]
+          and replays == prefills + steps,
+          f"served run: graphs {before['graphs']} -> {after['graphs']}, "
+          f"{prefills} prefills and {steps} steps")
     for row in rows:
-        row["launches"] = counts[row["name"]]      # the train phase resets
+        row["launches"] = counts.get(row["name"], 0)   # the train phases reset
     dec_s = after["decode_s"] - before["decode_s"]
     pre_s = after["prefill_s"] - before["prefill_s"]
     dec_tok = after["decode_tokens"] - before["decode_tokens"]
@@ -2296,12 +2647,17 @@ def main(argv):
              "decode_step_ms": 1e3 * dec_s / steps,
              "prefill_ms": 1e3 * pre_s / prefills,
              "decode_tok_s": dec_tok / dec_s, "decode_steps": steps,
-             "prompt_lens": prompt_lens.tolist(), "card": card}
+             "prompt_lens": prompt_lens.tolist(), "buckets": buckets,
+             "graph_captures": warm["captures"],
+             "graph_capture_s": warm["capture_s"], "warmup_s": warm_s,
+             "graph_replays": replays, "card": card}
     results["serve"] = serve
-    print(f"serve on {card}: prefill_ms {serve['prefill_ms']:.3f} (mean of "
-          f"{prefills}), decode_step_ms {serve['decode_step_ms']:.3f} (mean "
+    print(f"serve on {card}, replaying CUDA graphs: prefill_ms "
+          f"{serve['prefill_ms']:.3f} (mean of {prefills}), decode_step_ms "
+          f"{serve['decode_step_ms']:.3f} (host wall per engine step, mean "
           f"of {steps}), tok_s {serve['tok_s']:.1f} end to end, decode "
-          f"tok_s {serve['decode_tok_s']:.1f}", flush=True)
+          f"tok_s {serve['decode_tok_s']:.1f}; {replays} replays",
+          flush=True)
 
     # -- phase 4: output checks, at the served batch's mid-decode lengths ---
     g = torch.Generator(device=dev)
@@ -2358,22 +2714,28 @@ def main(argv):
     for a_, b_ in zip(paged, dense):
         check(np.array_equal(a_, b_), f"paged engine {a_.tolist()} != "
               f"dense generate {b_.tolist()}")
-    print("paged engine (f32 KV, kernels) == dense generate: greedy tokens "
-          "identical on 2 prompts x 8 tokens", flush=True)
-
-    # -- phase 5: the same decode step, device time against host time -------
+    print("paged engine (f32 KV, kernels, CUDA graphs) == dense generate: "
+          "greedy tokens identical on 2 prompts x 8 tokens", flush=True)
     run = paged_decode_program(model)
+    results["replay_vs_eager"] = replay_equals_eager(
+        torch, model, run, args, g, prompts[3], wrappers)
+    results["sampling"] = sampling_check(torch, model, prompts[4][:40])
+
+    # -- phase 5: the same decode step, replayed and eager -------------------
     step = {"lengths": lengths.tolist()}
     for path in ("kernels", "plain"):
-        with tnn.no_kernels() if path == "plain" else nullcontext():
-            dev_ms, host_ms = time_ms(lambda i: run(*args, g), iters=10,
-                                      warmup=2)
-        step[path] = {"device_ms": dev_ms, "host_ms": host_ms,
-                      "device_busy": dev_ms / host_ms}
-        print(f"decode step on {card}, {path} path, lengths "
-              f"{step['lengths']}: device_ms {dev_ms:.4f} host_ms "
-              f"{host_ms:.4f} (device busy {dev_ms / host_ms:.3f})",
-              flush=True)
+        for mode, call in (("replayed", run), ("eager", run.eager)):
+            with tnn.no_kernels() if path == "plain" else nullcontext():
+                dev_ms, host_ms = time_ms(lambda i: call(*args, g), iters=10,
+                                          warmup=2)
+            step[f"{path} {mode}"] = {"device_ms": dev_ms, "host_ms": host_ms,
+                                      "device_busy": dev_ms / host_ms}
+            print(f"decode step on {card}, {path} path {mode}, lengths "
+                  f"{step['lengths']}: device_ms {dev_ms:.4f} host_ms "
+                  f"{host_ms:.4f} (device busy {dev_ms / host_ms:.3f})",
+                  flush=True)
+    step["graphs"] = {"captures": run.captures, "replays": run.replays,
+                      "capture_s": run.capture_s}
     if "--profile" in argv:
         prof_ms = profile_decode(torch, run, args, g)
         step["profiler_device_ms"] = prof_ms
@@ -2382,17 +2744,24 @@ def main(argv):
               flush=True)
     results["decode_step"] = step
     del args, pk, pv
+    results["prefill_step"] = prefill_times(torch, model, card, prompts,
+                                            buckets)
 
     # -- phase 6: a train step's loss and gradients, kernels against plain --
     results["train_check"] = train_grad_check(torch, model, dev, wrappers)
 
-    # -- phase 7: the train main path ----------------------------------------
-    train = train_phase(torch, model, dev, card, wrappers,
-                        "--profile" in argv)
-    results["train"] = train
-    for row in rows:
-        if TRAIN_LAUNCHES[row["name"]] and row["name"] != "layer_norm_fwd":
-            row["launches"] = train["launches"][row["name"]]
+    # -- phase 7: the train main path, under each matmul policy ---------------
+    for policy in ("highest", "default"):
+        with matmul_precision_scope(policy):
+            train = train_phase(torch, model, dev, card, wrappers,
+                                "--profile" in argv, policy)
+        results[f"train_{policy}"] = train
+        for row in rows:       # the one-pass rows take the default's counts
+            base = row["name"].removesuffix("_tf32")
+            if ((base != row["name"]) == (policy == "default")
+                    and TRAIN_LAUNCHES.get(base)
+                    and base != "layer_norm_fwd"):
+                row["launches"] = train["launches"][base]
 
     # -- phase 8: the front-door path ------------------------------------------
     del model, run         # free gpt_like: the stack's peak is its own
@@ -2404,7 +2773,7 @@ def main(argv):
     results["frontdoor"] = front
     for row in rows:
         if row["name"] in ("rms_norm_fwd", "rtc_row_absmax_scale"):
-            row["launches"] = front["launches"][row["name"]]
+            row["launches"] = front["default"]["launches"][row["name"]]
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

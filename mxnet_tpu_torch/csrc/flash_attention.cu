@@ -19,7 +19,9 @@
 // forward does 2 products over the causal half (12.9 GFLOP) and moves
 // about 0.1 GB (0.03 ms). On the FMA units (67 TFLOP/s f32) that is
 // 0.19 ms, where the previous design of this kernel ran; on the tensor
-// cores in three TF32 passes (495 TFLOP/s each) 0.078 ms.
+// cores in three TF32 passes (495 TFLOP/s each) 0.078 ms. In the one
+// pass of the default matmul policy the operations take 0.026 ms and the
+// bytes bound it, at 0.030 ms.
 //
 // Design: the dQ kernel of the backward with an online softmax in place
 // of its dS step.
@@ -27,7 +29,9 @@
 //   Tile<DP>::N-row tiles through the two-stage `cp.async` ring of
 //   `stage_rows`, so tile t + 1 loads while tile t multiplies.
 // - S = Q.K^T by `mma.sync`: f32 in three TF32 passes (hi.hi + hi.lo +
-//   lo.hi, `OpsF32`), bf16 in one m16n8k16 pass. Q's A fragments are
+//   lo.hi, `OpsF32`) under the `high`/`highest` matmul policy, in one
+//   (`OpsTF32`, each operand rounded by `cvt.rna`) under `default`; bf16
+//   in one m16n8k16 pass. Q's A fragments are
 //   loaded from shared memory (and split) per tile: a first build that
 //   kept them in registers across the K loop ran 7% slower in f32.
 // - The online softmax runs on the accumulator in registers. Thread (g, t)
@@ -53,13 +57,13 @@ template <int DP> constexpr int FWD_N = Tile<DP>::N;
 
 constexpr float LN2 = 0.6931471805599453f;
 
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 __global__ void __launch_bounds__(FA_THREADS, Tile<DP>::MIN_BLOCKS)
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
                     float* __restrict__ lse, int lq, int lk, int d,
                     int causal, float scale, int vec) {
-  using Ops = typename OpsOf<T>::type;
+  using Ops = typename OpsOf<T, ONE_PASS>::type;
   constexpr int LD = DP + Ops::PAD, BN = FWD_N<DP>, NT = BN / 8;
   constexpr int NS = Tile<DP>::STAGES, KSTEPS = DP / Ops::KS;
   extern __shared__ float4 fwd_smem[];
@@ -197,20 +201,20 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // shared bytes: the block's 64 q rows and the ring's stages of K and V
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 constexpr size_t fwd_smem_bytes() {
-  using Ops = typename OpsOf<T>::type;
+  using Ops = typename OpsOf<T, ONE_PASS>::type;
   constexpr int LD = DP + Ops::PAD;
   return (size_t)(FA_ROWS + 2 * Tile<DP>::STAGES * FWD_N<DP>) * LD *
          sizeof(T);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
         int bh, int lq, int lk, int d, int causal, float scale,
         cudaStream_t s) {
-  const size_t smem = fwd_smem_bytes<T, DP>();
-  auto kern = flash_fwd_tc_kernel<T, DP>;
+  const size_t smem = fwd_smem_bytes<T, DP, ONE_PASS>();
+  auto kern = flash_fwd_tc_kernel<T, DP, ONE_PASS>;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(bh, (lq + FA_ROWS - 1) / FA_ROWS);
@@ -225,21 +229,26 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 }  // namespace
 
 // Each entry takes its DP (64 or 128) from d; d <= 64 zero-pads to 64.
+// f32 multiplies in one TF32 pass when one_pass is set (the default
+// policy), else in three; bf16 ignores it.
 #define FA_DISPATCH(FN, ...)                                            \
   switch (dtype) {                                                      \
     case kF32:                                                          \
-      return d <= 64 ? FN<float, 64>(__VA_ARGS__)                       \
-                     : FN<float, 128>(__VA_ARGS__);                     \
+      if (one_pass)                                                     \
+        return d <= 64 ? FN<float, 64, true>(__VA_ARGS__)               \
+                       : FN<float, 128, true>(__VA_ARGS__);             \
+      return d <= 64 ? FN<float, 64, false>(__VA_ARGS__)                \
+                     : FN<float, 128, false>(__VA_ARGS__);              \
     case kBF16:                                                         \
-      return d <= 64 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)               \
-                     : FN<__nv_bfloat16, 128>(__VA_ARGS__);             \
+      return d <= 64 ? FN<__nv_bfloat16, 64, false>(__VA_ARGS__)        \
+                     : FN<__nv_bfloat16, 128, false>(__VA_ARGS__);      \
     default: return (int)cudaErrorInvalidValue;                         \
   }
 
 extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int bh, int lq, int lk,
                              int d, int causal, float scale, int dtype,
-                             void* stream) {
+                             int one_pass, void* stream) {
   if (bad_shape(bh, lq, lk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FA_DISPATCH(fwd, q, k, v, out, lse, bh, lq, lk, d, causal, scale, s)

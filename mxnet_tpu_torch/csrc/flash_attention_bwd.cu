@@ -20,9 +20,17 @@
 // the previous design ran there. On the tensor cores in three TF32
 // passes (495 TFLOP/s each) it is 0.117 + 0.156 ms.
 //
-// Why 3xTF32. The port is held to its plain f32 version to 1e-5 of the
-// largest magnitude. One TF32 pass keeps 10 mantissa bits (about 1e-3
-// relative) and fails that. Each f32 operand x splits in registers into
+// Two f32 routes, chosen per launch by the matmul policy (the wrapper
+// reads torch's live CUDA matmul switch, as the reference's
+// `_matmul_precision`, :39, reads the ambient JAX precision): one TF32
+// pass under `default` (each operand rounded to nearest by `cvt.rna`,
+// as cuBLAS rounds; there dQ's 0.039 ms of operations fall under its
+// 0.045 ms of bytes, and dK/dV's bound is 0.052 ms of operations), three
+// under `high`/`highest`.
+//
+// Why 3xTF32 under `highest`. There the port is held to its plain f32
+// version to 1e-5 of the largest magnitude. One TF32 pass keeps 10
+// mantissa bits (about 1e-3 relative) and fails that. Each f32 operand x splits in registers into
 // hi = x with its low 13 bits cleared (a TF32 value) and lo = x - hi,
 // exact in f32, whose top 11 bits the tensor core reads. a * b =
 // hi.hi + hi.lo + lo.hi drops lo.lo and lo's cut bits, about 2^-20 of
@@ -94,14 +102,14 @@ __device__ __forceinline__ void score_pair(
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 __global__ void __launch_bounds__(FA_THREADS, Tile<DP>::MIN_BLOCKS)
 flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ o,
                        const T* __restrict__ g, const float* __restrict__ lse,
                        T* __restrict__ dq, float* __restrict__ delta, int lq,
                        int lk, int d, int causal, float scale, int vec) {
-  using Ops = typename OpsOf<T>::type;
+  using Ops = typename OpsOf<T, ONE_PASS>::type;
   constexpr int LD = DP + Ops::PAD, BN = Tile<DP>::N, NT = BN / 8;
   constexpr int NS = Tile<DP>::STAGES;
   extern __shared__ float4 bwd_smem[];
@@ -213,7 +221,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 __global__ void __launch_bounds__(FA_THREADS, Tile<DP>::MIN_BLOCKS)
 flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ g,
@@ -221,7 +229,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ delta, T* __restrict__ dk,
                         T* __restrict__ dv, int lq, int lk, int d,
                         int causal, float scale, int vec) {
-  using Ops = typename OpsOf<T>::type;
+  using Ops = typename OpsOf<T, ONE_PASS>::type;
   constexpr int LD = DP + Ops::PAD, BN = Tile<DP>::N, NT = BN / 8;
   constexpr int NS = Tile<DP>::STAGES;
   extern __shared__ float4 bwd_smem[];
@@ -327,20 +335,20 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // shared bytes: the block's two 64-row tiles, the ring's 2 stages of two
 // tiles, and the f32 vectors (K1c: D of its 64 rows; K1d: lse and D of
 // each stage)
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 constexpr size_t bwd_smem_bytes(bool dkv) {
-  using Ops = typename OpsOf<T>::type;
+  using Ops = typename OpsOf<T, ONE_PASS>::type;
   constexpr int LD = DP + Ops::PAD, BN = Tile<DP>::N, NS = Tile<DP>::STAGES;
   return (size_t)(2 * FA_ROWS + 2 * NS * BN) * LD * sizeof(T) +
          (dkv ? 2 * NS * BN : FA_ROWS) * sizeof(float);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o,
            const void* g, const void* lse, void* dq, void* delta, int bh,
            int lq, int lk, int d, int causal, float scale, cudaStream_t s) {
-  const size_t smem = bwd_smem_bytes<T, DP>(false);
-  auto kern = flash_bwd_dq_tc_kernel<T, DP>;
+  const size_t smem = bwd_smem_bytes<T, DP, ONE_PASS>(false);
+  auto kern = flash_bwd_dq_tc_kernel<T, DP, ONE_PASS>;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(bh, (lq + FA_ROWS - 1) / FA_ROWS);
@@ -353,12 +361,12 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ONE_PASS>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* g,
             const void* lse, const void* delta, void* dk, void* dv, int bh,
             int lq, int lk, int d, int causal, float scale, cudaStream_t s) {
-  const size_t smem = bwd_smem_bytes<T, DP>(true);
-  auto kern = flash_bwd_dkv_tc_kernel<T, DP>;
+  const size_t smem = bwd_smem_bytes<T, DP, ONE_PASS>(true);
+  auto kern = flash_bwd_dkv_tc_kernel<T, DP, ONE_PASS>;
   cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(bh, (lk + FA_ROWS - 1) / FA_ROWS);
@@ -374,14 +382,19 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* g,
 }  // namespace
 
 // Each entry takes its DP (64 or 128) from d; d <= 64 zero-pads to 64.
+// f32 multiplies in one TF32 pass when one_pass is set (the default
+// policy), else in three; bf16 ignores it.
 #define BWD_DISPATCH(FN, ...)                                           \
   switch (dtype) {                                                      \
     case kF32:                                                          \
-      return d <= 64 ? FN<float, 64>(__VA_ARGS__)                       \
-                     : FN<float, 128>(__VA_ARGS__);                     \
+      if (one_pass)                                                     \
+        return d <= 64 ? FN<float, 64, true>(__VA_ARGS__)               \
+                       : FN<float, 128, true>(__VA_ARGS__);             \
+      return d <= 64 ? FN<float, 64, false>(__VA_ARGS__)                \
+                     : FN<float, 128, false>(__VA_ARGS__);              \
     case kBF16:                                                         \
-      return d <= 64 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)               \
-                     : FN<__nv_bfloat16, 128>(__VA_ARGS__);             \
+      return d <= 64 ? FN<__nv_bfloat16, 64, false>(__VA_ARGS__)        \
+                     : FN<__nv_bfloat16, 128, false>(__VA_ARGS__);      \
     default: return (int)cudaErrorInvalidValue;                         \
   }
 
@@ -389,7 +402,7 @@ extern "C" int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* g, const void* lse,
                                 void* dq, void* delta, int bh, int lq, int lk,
                                 int d, int causal, float scale, int dtype,
-                                void* stream) {
+                                int one_pass, void* stream) {
   if (bad_shape(bh, lq, lk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BWD_DISPATCH(bwd_dq, q, k, v, o, g, lse, dq, delta, bh, lq, lk, d, causal,
@@ -400,7 +413,8 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* g, const void* lse,
                                  const void* delta, void* dk, void* dv,
                                  int bh, int lq, int lk, int d, int causal,
-                                 float scale, int dtype, void* stream) {
+                                 float scale, int dtype, int one_pass,
+                                 void* stream) {
   if (bad_shape(bh, lq, lk, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BWD_DISPATCH(bwd_dkv, q, k, v, g, lse, delta, dk, dv, bh, lq, lk, d,

@@ -7,9 +7,14 @@
 //   Tile<DP>::N-row tiles, a two-stage ring of 16-byte `cp.async` copies
 //   (`stage_rows`), so tile t + 1 loads while tile t multiplies.
 // - Products are `mma.sync` m16n8k8 TF32 or m16n8k16 bf16 (`OpsF32`,
-//   `OpsBF16`). An f32 operand x splits in registers into hi = x with its
-//   low 13 bits cleared (a TF32 value) and lo = x - hi (exact), and a * b
-//   = hi.hi + hi.lo + lo.hi (3xTF32), about 2^-20 of the product off.
+//   `OpsTF32`, `OpsBF16`). Under the full-f32 policy an f32 operand x
+//   splits in registers into hi = x with its low 13 bits cleared (a TF32
+//   value) and lo = x - hi (exact), and a * b = hi.hi + hi.lo + lo.hi
+//   (3xTF32, `OpsF32`), about 2^-20 of the product off. Under the
+//   default policy (one pass, as the reference's kernel dots run at
+//   DEFAULT) each f32 operand is rounded once to TF32 by `cvt.rna`, as
+//   cuBLAS rounds, and multiplied in one pass (`OpsTF32`), about 2^-11
+//   of the product off.
 // - The m16n8 accumulator layout is the m16n8k8 A layout up to an order
 //   of the contraction index: thread (g, t) (lane 4 g + t) holds columns
 //   2t and 2t + 1, and the A fragment wants columns t and t + 4. Logical
@@ -211,6 +216,75 @@ struct OpsF32 {
   }
 };
 
+// One TF32 pass: each f32 operand rounded to nearest (ties away from
+// zero) to TF32, one m16n8k8 per product
+struct OpsTF32 {
+  using T = float;
+  static constexpr int KS = 8;
+  static constexpr int PAD = 4;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+
+  static __device__ __forceinline__ uint32_t tf32(float x) {
+    uint32_t y;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+    return y;
+  }
+  static __device__ __forceinline__ uint32_t tf32(uint32_t x) {
+    return tf32(__uint_as_float(x));
+  }
+  template <int LD>
+  static __device__ __forceinline__ A load_a(const float* s, int r0, int k0,
+                                             int lane) {
+    A a;
+    ldsm_x4(a_addr<float, LD>(s, r0, k0, lane), a.r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a.r[i] = tf32(a.r[i]);
+    return a;
+  }
+  template <int LD>
+  static __device__ __forceinline__ void load_b2(const float* s, int n0,
+                                                 int k0, int lane, B& b0,
+                                                 B& b1) {
+    uint32_t r[4];
+    ldsm_x4(b2_addr<float, LD>(s, n0, k0, lane), r);
+    b0 = {{tf32(r[0]), tf32(r[1])}};
+    b1 = {{tf32(r[2]), tf32(r[3])}};
+  }
+  // logical k index t is row k0 + 2t, t + 4 is row k0 + 2t + 1
+  template <int LD>
+  static __device__ __forceinline__ B load_b_col(const float* s, int k0,
+                                                 int n0, int lane) {
+    const float* p = s + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+    return {{tf32(p[0]), tf32(p[LD])}};
+  }
+  template <int N>
+  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4],
+                                               int ks) {
+    return {{tf32(c[ks][0]), tf32(c[ks][2]), tf32(c[ks][1]),
+             tf32(c[ks][3])}};
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const A& a,
+                                             const B& b) {
+    OpsF32::mma1(c, a.r, b.r);
+  }
+  // the truncating accumulator does not depend on the pass count: each
+  // pair of k-steps is summed from zero and added with a rounding FADD
+  static __device__ __forceinline__ void mma_into(float (&c)[4], const A& a0,
+                                                  const B& b0, const A& a1,
+                                                  const B& b1) {
+    float t[4];
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
+        : "r"(a0.r[0]), "r"(a0.r[1]), "r"(a0.r[2]), "r"(a0.r[3]),
+          "r"(b0.r[0]), "r"(b0.r[1]), "f"(0.0f));
+    OpsF32::mma1(t, a1.r, b1.r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += t[e];
+  }
+};
+
 struct OpsBF16 {
   using T = __nv_bfloat16;
   static constexpr int KS = 16;
@@ -278,9 +352,12 @@ struct OpsBF16 {
   }
 };
 
-template <typename T> struct OpsOf;
-template <> struct OpsOf<float> { using type = OpsF32; };
-template <> struct OpsOf<__nv_bfloat16> { using type = OpsBF16; };
+// the products of a kernel instantiation: T's, with ONE_PASS picking one
+// TF32 pass over 3xTF32 for f32 (the default policy's route)
+template <typename T, bool ONE_PASS> struct OpsOf;
+template <> struct OpsOf<float, false> { using type = OpsF32; };
+template <> struct OpsOf<float, true> { using type = OpsTF32; };
+template <> struct OpsOf<__nv_bfloat16, false> { using type = OpsBF16; };
 
 // width of the streamed tiles, depth of their ring, and blocks per SM
 // (shared memory and registers allow 3 at D <= 64, 1 at D <= 128)

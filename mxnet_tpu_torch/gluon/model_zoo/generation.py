@@ -1,25 +1,41 @@
 """Autoregressive generation of the PyTorch port (counterpart of
 ``mxnet_tpu/gluon/model_zoo/generation.py``).
 
-PyTorch runs eagerly, so where the reference builds and memoizes jitted
-programs these are plain functions: :func:`generate` is the dense-cache
-offline oracle, and :func:`paged_decode_program` /
-:func:`paged_prefill_program` return the two step functions the serving
-engine calls (one decode step over the whole lane set, one
-prefill-and-splice per prompt bucket). Sampling draws from an explicit
-``torch.Generator``.
+:func:`generate` is the dense-cache offline oracle, and
+:func:`paged_decode_program` / :func:`paged_prefill_program` return the
+two programs the serving engine calls (one decode step over the whole
+lane set, one prefill-and-splice per prompt bucket). Sampling draws from
+an explicit ``torch.Generator``.
+
+Where the reference compiles each program once per shape and memoizes
+it (``_paged_jit``, ``:393``), a program here captures its step on a
+CUDA device as a ``torch.cuda.CUDAGraph`` once per key and replays it
+afterwards (:class:`GraphedProgram`). The key is the program, the shapes
+and dtypes of its inputs, the addresses of the pools it updates in place
+(the graph writes where they lay at capture), its sampling settings, and
+every routing decision Python takes while the step is captured:
+``kernels_enabled()``, ``fused_decode_armed()`` and the matmul precision
+policy (cuBLAS reads TF32 at capture; the reference's AOT key carries
+the matmul precision too, ``mxnet_tpu/aot/cache.py:277``). A capture
+that fails raises. On the CPU the programs run eagerly, as the caller
+asked for that device.
 """
 from __future__ import annotations
 
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import numpy as onp
 import torch
 
-from ...base import MXNetError
+from ...base import MXNetError, matmul_precision
 from ...context import resolve_device
+from ...ops.kernels import _build
+from ...ops.kernels.fused_decode import fused_decode_armed
+from ...ops.nn import kernels_enabled
 
-__all__ = ["generate", "paged_decode_program", "paged_prefill_program"]
+__all__ = ["generate", "paged_decode_program", "paged_prefill_program",
+           "GraphedProgram"]
 
 _KV_CACHE_DTYPES = (None, "int8", "float32", "bfloat16", "float16")
 
@@ -105,17 +121,169 @@ def generate(model, prompt_ids, max_new_tokens: int,
     return torch.stack(out, dim=1)
 
 
-def paged_decode_program(model, *, greedy=True, temperature=1.0, top_k=0):
+def routing_key(device) -> tuple:
+    """The decisions Python takes while a step runs, which a captured
+    graph freezes: kernels on or off (:class:`~...ops.nn.no_kernels`),
+    the fused decode kernels armed (``MXNET_TPU_LLM_FUSED_DECODE``), and
+    the matmul precision policy."""
+    return (kernels_enabled(), fused_decode_armed(torch.device(device)),
+            matmul_precision())
+
+
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device):
+    """One side stream per device for the warm-up runs and captures."""
+    st = _CAPTURE_STREAMS.get(device)
+    if st is None:
+        st = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return st
+
+
+class _Captured:
+    """One captured graph: its static inputs and outputs, and what its
+    capture launched per counted wrapper."""
+
+    __slots__ = ("graph", "fed", "out", "launches")
+
+    def __init__(self, graph, fed, out, launches):
+        self.graph, self.fed, self.out = graph, fed, out
+        self.launches = launches
+
+
+class GraphedProgram:
+    """A step ``body(*args, generator)`` run as a CUDA graph per key.
+
+    The arguments at positions ``fed`` (tokens, tables, positions,
+    indices; a Python int becomes a (1,) int64 tensor) are copied on each
+    call into static device buffers the graph owns, without blocking
+    (from pinned host memory where the caller keeps them pinned); the
+    others, the KV pools, are used where they lie and updated in place,
+    so their addresses are part of the key. The first call of a key runs
+    the body once on a side stream (the warm-up torch requires, which
+    also loads every kernel and allocates K4's workspace), then captures
+    it into the program's memory pool (``graph_pool``, which a caller
+    may share between programs); the generator of a sampling program is
+    registered with the graph, so each replay draws anew. Calls then
+    replay it.
+
+    The kernel wrappers count their launches in Python, so a replay adds
+    what its capture launched to each wrapper's ``.launches``: counts
+    stay exact per replayed step. Outputs are the graph's static
+    tensors, overwritten by the next replay. The graph also reads the
+    model's parameters where they lay at capture. :meth:`eager` runs the
+    body itself on the same inputs; on the CPU every call does.
+    ``captures``, ``replays`` and ``capture_s`` count the program's
+    graphs."""
+
+    def __init__(self, label, body, fed, settings, sampling,
+                 graph_pool=None):
+        self.label = label
+        self._body = body
+        self._fed = tuple(fed)
+        self._settings = settings
+        self._sampling = sampling
+        self._pool = graph_pool
+        self._graphs: Dict[tuple, _Captured] = {}
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def _split(self, args):
+        """(fed inputs as tensors, the held tensors, their device)."""
+        fed = [a if isinstance(a, torch.Tensor)
+               else torch.tensor([int(a)], dtype=torch.int64)
+               for i, a in enumerate(args) if i in self._fed]
+        held = [a for i, a in enumerate(args) if i not in self._fed]
+        return fed, held, held[0].device
+
+    def _join(self, args, fed):
+        it = iter(fed)
+        return [next(it) if i in self._fed else a
+                for i, a in enumerate(args)]
+
+    def key(self, *args):
+        """The graph key of a call with these inputs (and generator)."""
+        *args, generator = args
+        fed, held, dev = self._split(args)
+        return (self.label, self._settings,
+                tuple((tuple(t.shape), t.dtype) for t in fed),
+                tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                      for t in held),
+                id(generator) if self._sampling else None,
+                routing_key(dev))
+
+    def eager(self, *args):
+        """One call of the step itself, its fed inputs moved to the
+        pools' device."""
+        *args, generator = args
+        fed, _, dev = self._split(args)
+        return self._body(*self._join(args, [t.to(dev) for t in fed]),
+                          generator)
+
+    def __call__(self, *args):
+        *args, generator = args
+        fed, _, dev = self._split(args)
+        if dev.type != "cuda":
+            return self.eager(*args, generator)
+        key = self.key(*args, generator)
+        got = self._graphs.get(key)
+        if got is None:
+            got = self._graphs[key] = self._capture(args, fed, generator,
+                                                    dev)
+        for buf, src in zip(got.fed, fed):
+            buf.copy_(src, non_blocking=True)
+        got.graph.replay()
+        for wrapper, n in got.launches:
+            wrapper.launches += n
+        self.replays += 1
+        return got.out
+
+    def _capture(self, args, fed, generator, dev):
+        t0 = time.perf_counter()
+        static = [t.to(dev).clone() for t in fed]
+        inputs = self._join(args, static)
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(*inputs, generator)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        if self._sampling:
+            graph.register_generator_state(generator)
+        before = [w.launches for w in _build.COUNTED]
+        with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                              capture_error_mode="thread_local"):
+            out = self._body(*inputs, generator)
+        launches = []
+        for w, n in zip(_build.COUNTED, before):
+            if w.launches != n:         # the capture launched nothing
+                launches.append((w, w.launches - n))
+                w.launches = n
+        torch.cuda.synchronize(dev)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return _Captured(graph, static, out, tuple(launches))
+
+
+def paged_decode_program(model, *, greedy=True, temperature=1.0, top_k=0,
+                         graph_pool=None):
     """The continuous-batching decode step over the whole lane set.
 
-    Returns ``run(tokens (R, 1) i32, pool_k, pool_v, block_table (R, MB)
-    i32, positions (R,) i32, generator) -> (next_tokens (R,) i32, pool_k,
-    pool_v)``, all tensors on the model's device. Lane ``r``'s token is
-    written at ``positions[r]`` through its table row (pools updated in
-    place), attended through the pool, and sampled. Inactive lanes point
-    at a trash block; their outputs are ignored by the scheduler."""
+    Returns a :class:`GraphedProgram` ``run(tokens (R, 1) i32, pool_k,
+    pool_v, block_table (R, MB) i32, positions (R,) i32, generator) ->
+    (next_tokens (R,) i32, pool_k, pool_v)``; the pools lie on the
+    model's device, the other inputs may lie on the host. Lane ``r``'s
+    token is written at ``positions[r]`` through its table row (pools
+    updated in place), attended through the pool, and sampled. Inactive
+    lanes point at a trash block; their outputs are ignored by the
+    scheduler. On a CUDA device the step replays a graph captured once
+    per key."""
 
-    def run(tokens, pool_k, pool_v, block_table, positions, generator):
+    def body(tokens, pool_k, pool_v, block_table, positions, generator):
         with torch.no_grad():
             logits, pool_k, pool_v = model.decode_step_paged(
                 tokens, pool_k, pool_v, block_table, positions)
@@ -123,22 +291,27 @@ def paged_decode_program(model, *, greedy=True, temperature=1.0, top_k=0):
                           top_k)
         return nxt, pool_k, pool_v
 
-    return run
+    return GraphedProgram(
+        "llm.decode", body, (0, 3, 4),
+        (id(model), bool(greedy), float(temperature), int(top_k)),
+        not greedy, graph_pool)
 
 
 def paged_prefill_program(model, *, prefill_len, block_size,
                           kv_cache_dtype=None, greedy=True, temperature=1.0,
-                          top_k=0):
+                          top_k=0, graph_pool=None):
     """The prefill-and-splice step for one prompt-length bucket.
 
-    Returns ``run(prompt (1, Pb) i32, last_idx int, pool_k, pool_v,
-    block_ids (Pb//bs,) i64, generator) -> (first_token () i32, pool_k,
-    pool_v)``. The prompt (padded to the bucket ``Pb``) fills a dense
-    cache, which is cut into ``Pb // block_size`` blocks and written into
-    the pools at ``block_ids`` in place (ids past the prompt's real
-    blocks point at the trash block, which may repeat); the first token
-    is sampled from the logits at ``last_idx``, the last real prompt
-    position."""
+    Returns a :class:`GraphedProgram` ``run(prompt (1, Pb) i32, last_idx,
+    pool_k, pool_v, block_ids (Pb//bs,) i64, generator) -> (first_token
+    () i32, pool_k, pool_v)``. The prompt (padded to the bucket ``Pb``)
+    fills a dense cache, which is cut into ``Pb // block_size`` blocks
+    and written into the pools at ``block_ids`` in place (ids past the
+    prompt's real blocks point at the trash block, which may repeat);
+    the first token is sampled from the logits at ``last_idx``, the last
+    real prompt position: an int or a (1,) int64 tensor, read on the
+    device, so that one graph serves every prompt of the bucket.
+    ``graph_pool`` lets the buckets' graphs share one memory pool."""
     cache_dtype = _resolve_cache_dtype(model, kv_cache_dtype)
     pb, bs = int(prefill_len), int(block_size)
     if pb % bs:
@@ -146,7 +319,7 @@ def paged_prefill_program(model, *, prefill_len, block_size,
             f"prefill bucket {pb} must be a multiple of block_size {bs}")
     nb = pb // bs
 
-    def run(prompt, last_idx, pool_k, pool_v, block_ids, generator):
+    def body(prompt, last_idx, pool_k, pool_v, block_ids, generator):
         with torch.no_grad():
             ck, cv = model.init_cache(1, pb, dtype=cache_dtype)
             logits, ck, cv = model.decode_step(prompt, ck, cv, 0)
@@ -158,8 +331,11 @@ def paged_prefill_program(model, *, prefill_len, block_size,
 
             pool_k[:, block_ids] = blocks(ck)
             pool_v[:, block_ids] = blocks(cv)
-            first = _sample(logits[:, last_idx], generator, greedy,
-                            temperature, top_k)[0]
+            last = logits.index_select(1, last_idx)[:, 0]
+            first = _sample(last, generator, greedy, temperature, top_k)[0]
         return first, pool_k, pool_v
 
-    return run
+    return GraphedProgram(
+        "llm.prefill", body, (0, 1, 4),
+        (id(model), pb, bs, cache_dtype, bool(greedy), float(temperature),
+         int(top_k)), not greedy, graph_pool)

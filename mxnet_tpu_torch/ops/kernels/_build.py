@@ -29,7 +29,7 @@ from ...base import FatalError
 
 __all__ = ["KERNEL_SOURCES", "DTYPE_CODES", "dtype_code", "load",
            "build_all", "check", "stream_ptr", "build_log", "on_cpu",
-           "require", "refuse_grad"]
+           "require", "refuse_grad", "COUNTED", "counted"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _SRC = _PKG / "csrc"
@@ -46,6 +46,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
+# every object whose ``.launches`` counts the launches of one of the
+# package's kernels (the wrappers, and rtc's CudaKernel), registered
+# where it is defined; a captured CUDA graph adds its capture's counts
+# on each replay (``gluon/model_zoo/generation.py``)
+COUNTED: List[object] = []
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,16 +76,24 @@ _SIGNATURES = {
         "mxt_out_geometry": [_I, _I, _I, ctypes.POINTER(_I)],
     },
     "flash_attention": {
-        "mxt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+        "mxt_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
     },
     "flash_attention_bwd": {
-        "mxt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
-        "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+        "mxt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+        "mxt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
     },
     "cross_entropy": {
         "mxt_row_lse": [_P, _P, _I64, _I64, _I, _I, _P],
     },
 }
+
+
+def counted(obj):
+    """Register ``obj`` (a wrapper, or a class) as a launch counter whose
+    ``.launches`` starts at 0; returns it."""
+    obj.launches = 0
+    COUNTED.append(obj)
+    return obj
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -104,4 +104,4 @@ def cross_entropy_plain(logits, labels):
     return _nll(logits, labels.long(), torch.logsumexp(logits.float(), -1))
 
 
-fused_lse.launches = 0
+_build.counted(fused_lse)

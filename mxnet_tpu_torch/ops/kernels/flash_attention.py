@@ -17,12 +17,27 @@ Replaces four TPU kernels with three hand-written CUDA kernels:
   recomputed it per block).
 
 All three multiply on the tensor cores (``mma.sync``, building blocks
-shared in ``csrc/flash_mma.cuh``): bf16 operands in one pass, f32
-operands split into a TF32 high and low part and multiplied in three
-passes (hi.hi + hi.lo + lo.hi), which keeps about f32 accuracy. Bound on
-the H100 at the main path's (8, 12, 1024, 64) causal f32: operations, at
-three TF32 passes of 495 TFLOP/s 0.078 ms forward, 0.117 ms dQ and
-0.156 ms dK/dV.
+shared in ``csrc/flash_mma.cuh``). :func:`kernel_route` picks how, per
+launch, from q's dtype and torch's live CUDA matmul switch, as the
+reference's ``_matmul_precision`` (``:39``) picks its dots' precision
+from the ambient JAX one (:mod:`mxnet_tpu_torch.base`):
+
+- bf16: one bf16 pass (the reference's DEFAULT);
+- f32 under the ``default`` policy: one TF32 pass, each operand rounded
+  to nearest by ``cvt.rna`` as cuBLAS rounds (DEFAULT, the reference's
+  one MXU pass);
+- f32 under ``high`` or ``highest``: each operand split into a TF32 high
+  and low part and multiplied in three passes (hi.hi + hi.lo + lo.hi),
+  which keeps about f32 accuracy (HIGHEST).
+
+Bound on the H100 at the main path's (8, 12, 1024, 64) causal f32, in
+three TF32 passes of 495 TFLOP/s: 0.078 ms forward, 0.117 ms dQ and
+0.156 ms dK/dV (operations); in one pass 0.030 (bytes), 0.045 (bytes)
+and 0.052 ms (operations). The route is a property of the card's
+arithmetic: CPU tensors take the exact f32 plain versions under every
+policy, as torch's CPU matmuls do. The plain versions take
+``round_tf32=True`` to round every product's operands as the one-pass
+kernels do.
 
 :func:`flash_attention` is the differentiable entry point, a
 ``torch.autograd.Function`` as the reference's is a ``jax.custom_vjp``:
@@ -37,14 +52,39 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ...base import matmul_precision
 
 __all__ = ["flash_attention", "flash_forward", "flash_backward_dq",
            "flash_backward_dkv", "flash_forward_plain",
            "flash_backward_dq_plain", "flash_backward_dkv_plain",
-           "flash_backward_plain", "mha_plain"]
+           "flash_backward_plain", "mha_plain", "kernel_route", "tf32_round"]
 
 _NEG = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_route(dtype) -> str:
+    """How K1a-K1d multiply inputs of ``dtype`` on the card under the
+    live policy: ``"bf16"`` (one bf16 pass), ``"tf32"`` (f32 in one TF32
+    pass, the ``default`` policy) or ``"3xtf32"`` (f32 under ``high`` or
+    ``highest``). The reference's ``_matmul_precision`` maps the same
+    cases to DEFAULT, DEFAULT and HIGHEST."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "tf32" if matmul_precision() == "default" else "3xtf32"
+
+
+def tf32_round(x):
+    """f32 ``x`` rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds (finite values;
+    the low 13 bits come out 0)."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _operand(round_tf32):
+    """A product's operand in f32: as it is, or rounded to TF32."""
+    return tf32_round if round_tf32 else (lambda t: t.float())
 
 
 def _live(lq, lk, causal, device):
@@ -71,19 +111,23 @@ def mha_plain(q, k, v, causal=False, sm_scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-def flash_forward_plain(q, k, v, causal=False, sm_scale=None):
+def flash_forward_plain(q, k, v, causal=False, sm_scale=None,
+                        round_tf32=False):
     """The plain version of the forward kernel: ``(out, lse)``, out in
     q's dtype and lse (B, H, Lq) f32. Like the kernel it rounds p to v's
-    dtype before P.V and guards ``l == 0``."""
+    dtype before P.V and guards ``l == 0``; with ``round_tf32`` it rounds
+    q, k, v and p to TF32 before their products, as the one-pass f32
+    kernel does."""
+    op = _operand(round_tf32)
     scale = _scale(q, sm_scale)
     live = _live(q.shape[2], k.shape[2], causal, q.device)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", op(q), op(k)) * scale
     s = s.masked_fill(~live, _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~live, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    pv = torch.einsum("bhqk,bhkd->bhqd", op(p.to(v.dtype)), op(v))
     return (pv / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -92,47 +136,55 @@ def _delta(out, g):
     return (g.float() * out.float()).sum(dim=-1)
 
 
-def _probs(q, k, v, g, lse, delta, causal, scale):
+def _probs(q, k, v, g, lse, delta, causal, scale, op):
     """p and ds of the FA2 backward (``pair_grads``, ``:730-746``) over
-    the whole score matrix, in f32."""
+    the whole score matrix, in f32, each product's operands taken by
+    ``op``."""
     live = _live(q.shape[2], k.shape[2], causal, q.device)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", op(q), op(k)) * scale
     p = torch.exp(s - lse[..., None]).masked_fill(~live, 0.0)
-    dp = torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", op(g), op(v))
     ds = p * (dp - delta[..., None]) * scale
     return p, ds
 
 
 def flash_backward_dq_plain(q, k, v, out, lse, g, causal=False,
-                            sm_scale=None):
-    """The plain version of the dQ kernel: ``(dq, delta)``."""
+                            sm_scale=None, round_tf32=False):
+    """The plain version of the dQ kernel: ``(dq, delta)``. With
+    ``round_tf32``, q, k, v, dO and dS are rounded to TF32 before their
+    products, as the one-pass f32 kernel does."""
+    op = _operand(round_tf32)
     scale = _scale(q, sm_scale)
     delta = _delta(out, g)
-    _, ds = _probs(q, k, v, g, lse, delta, causal, scale)
-    dsq = ds.to(q.dtype).float()
-    return (torch.einsum("bhqk,bhkd->bhqd", dsq, k.float()).to(q.dtype),
-            delta)
+    _, ds = _probs(q, k, v, g, lse, delta, causal, scale, op)
+    return (torch.einsum("bhqk,bhkd->bhqd", op(ds.to(q.dtype)),
+                         op(k)).to(q.dtype), delta)
 
 
 def flash_backward_dkv_plain(q, k, v, g, lse, delta, causal=False,
-                             sm_scale=None):
-    """The plain version of the dK/dV kernel: ``(dk, dv)``."""
-    p, ds = _probs(q, k, v, g, lse, delta, causal, _scale(q, sm_scale))
-    dsq = ds.to(q.dtype).float()
-    dk = torch.einsum("bhqk,bhqd->bhkd", dsq, q.float()).to(k.dtype)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(),
-                      g.float()).to(v.dtype)
+                             sm_scale=None, round_tf32=False):
+    """The plain version of the dK/dV kernel: ``(dk, dv)``. With
+    ``round_tf32``, q, k, v, dO, p and dS are rounded to TF32 before
+    their products, as the one-pass f32 kernel does."""
+    op = _operand(round_tf32)
+    p, ds = _probs(q, k, v, g, lse, delta, causal, _scale(q, sm_scale), op)
+    dk = torch.einsum("bhqk,bhqd->bhkd", op(ds.to(q.dtype)),
+                      op(q)).to(k.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", op(p.to(q.dtype)),
+                      op(g)).to(v.dtype)
     return dk, dv
 
 
-def flash_backward_plain(q, k, v, out, lse, g, causal=False, sm_scale=None):
+def flash_backward_plain(q, k, v, out, lse, g, causal=False, sm_scale=None,
+                         round_tf32=False):
     """The plain version of the backward kernels: ``(dq, dk, dv)`` by the
     FA2 math of ``pair_grads`` from the saved lse, with p and ds rounded
-    to q's dtype before their products, as the TPU kernels round."""
+    to q's dtype before their products, as the TPU kernels round (and
+    every operand to TF32 with ``round_tf32``)."""
     dq, delta = flash_backward_dq_plain(q, k, v, out, lse, g, causal,
-                                        sm_scale)
+                                        sm_scale, round_tf32)
     return (dq,) + flash_backward_dkv_plain(q, k, v, g, lse, delta, causal,
-                                            sm_scale)
+                                            sm_scale, round_tf32)
 
 
 def _check(what, q, k, v, *more):
@@ -170,6 +222,7 @@ def flash_forward(q, k, v, causal=False, sm_scale=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b * h, lq, lk, d, int(causal),
             _scale(q, sm_scale), _build.dtype_code(q.dtype),
+            int(kernel_route(q.dtype) == "tf32"),
             _build.stream_ptr(q.device))
     _build.check(err, what)
     flash_forward.launches += 1
@@ -198,7 +251,8 @@ def flash_backward_dq(q, k, v, out, lse, g, causal=False, sm_scale=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
             b * h, lq, k.shape[2], d, int(causal), _scale(q, sm_scale),
-            _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
+            _build.dtype_code(q.dtype), int(kernel_route(q.dtype) == "tf32"),
+            _build.stream_ptr(q.device))
     _build.check(err, what)
     flash_backward_dq.launches += 1
     return dq, delta
@@ -228,7 +282,8 @@ def flash_backward_dkv(q, k, v, g, lse, delta, causal=False,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b * h, lq, k.shape[2], d, int(causal), _scale(q, sm_scale),
-            _build.dtype_code(q.dtype), _build.stream_ptr(q.device))
+            _build.dtype_code(q.dtype), int(kernel_route(q.dtype) == "tf32"),
+            _build.stream_ptr(q.device))
     _build.check(err, what)
     flash_backward_dkv.launches += 1
     return dk, dv
@@ -262,6 +317,6 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     return _FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale))
 
 
-flash_forward.launches = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
+_build.counted(flash_forward)
+_build.counted(flash_backward_dq)
+_build.counted(flash_backward_dkv)

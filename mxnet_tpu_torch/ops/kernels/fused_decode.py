@@ -197,7 +197,7 @@ def fused_qkv_project(x, w_qkv, b_qkv, *, heads, store_dtype):
     return q, ks, vs
 
 
-fused_qkv_project.launches = 0
+_build.counted(fused_qkv_project)
 
 
 def fused_out_project(attn, w_out, b_out):
@@ -225,7 +225,7 @@ def fused_out_project(attn, w_out, b_out):
     return out
 
 
-fused_out_project.launches = 0
+_build.counted(fused_out_project)
 
 
 def fused_decode_step(x, w_qkv, b_qkv, w_out, b_out, pool_k, pool_v,

@@ -155,7 +155,7 @@ def fused_layer_norm(x, gamma, beta, eps: float = 1e-5):
     return _LayerNorm.apply(x, gamma, beta, float(eps))
 
 
-fused_layer_norm.launches = 0
+_build.counted(fused_layer_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -235,4 +235,4 @@ def fused_rms_norm(x, gamma, eps: float = 1e-6):
     return _RMSNorm.apply(x, gamma, float(eps))
 
 
-fused_rms_norm.launches = 0
+_build.counted(fused_rms_norm)

@@ -151,4 +151,4 @@ def paged_attention_kernel(q, k_pool, v_pool, block_table, lengths):
     return out
 
 
-paged_attention_kernel.launches = 0
+_build.counted(paged_attention_kernel)

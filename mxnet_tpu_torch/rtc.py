@@ -348,8 +348,6 @@ class CudaKernel:
     ``CudaKernel``). ``CudaKernel.launches`` counts launches of every
     runtime-compiled kernel."""
 
-    launches = 0
-
     def __init__(self, module: CudaModule, name: str, lowered: str,
                  params: List[Tuple[str, bool, bool]]):
         self._module = module
@@ -445,6 +443,9 @@ class CudaKernel:
         if not outs:
             return None
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+_build.counted(CudaKernel)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,14 @@ PyTorch port (counterpart of ``mxnet_tpu/serving/llm.py``).
 
 The scheduler thread launches all device work on the engine's device
 (on ``torch.cuda.current_stream(device)``); the sampled tokens come back
-with ``.cpu()``, which is the step's synchronisation point. Counters are
-plain integers (:meth:`LLMEngine.stats`).
+with ``.cpu()``, which is the step's synchronisation point. On a CUDA
+device both programs replay CUDA graphs (the counterpart of the
+reference's compiled programs): :meth:`LLMEngine.warmup` captures the
+decode step and the prefill buckets of given prompt lengths ahead of
+traffic, and a bucket not yet warmed is captured at its first use. The
+lane state (tokens, block table, positions) lives in pinned host memory
+that each step copies into the decode graph's static buffers. Counters
+are plain integers (:meth:`LLMEngine.stats`).
 """
 from __future__ import annotations
 
@@ -31,8 +37,8 @@ import torch
 
 from ..base import FatalError, MXNetError, TransientError, env_float
 from ..gluon.model_zoo.generation import (
-    _model_device, _resolve_cache_dtype, paged_decode_program,
-    paged_prefill_program)
+    GraphedProgram, _model_device, _resolve_cache_dtype,
+    paged_decode_program, paged_prefill_program)
 from .admission import (AdmissionQueue, DeadlineExceeded, Request,
                         RequestCancelled, ServerOverload)
 
@@ -152,7 +158,8 @@ class LLMEngine:
 
     The reference engine's speculative decoding, prefix cache, KV spill
     tiers, disaggregated roles, mesh sharding, int8 weights, step hook,
-    telemetry spans, chaos sites and AOT warmup are not carried yet.
+    telemetry spans, chaos sites and AOT warmup manifests are not carried
+    yet.
     """
 
     def __init__(self, model, *, device=None,
@@ -212,16 +219,27 @@ class LLMEngine:
             self.num_blocks + 1, self.block_size, dtype=self._kv_dtype)
         self._free: List[int] = list(range(self.num_blocks))
 
-        # lane state on the host; copied to the device each step
+        # lane state on the host (pinned for a card), copied to the
+        # device each step; the numpy arrays are views of the tensors
         self._lanes: List[Optional[_Lane]] = [None] * self.max_running
-        self._bt = onp.full((self.max_running, self.max_blocks_per_seq),
-                            self._trash, onp.int32)
-        self._pos = onp.zeros((self.max_running,), onp.int32)
-        self._toks = onp.zeros((self.max_running, 1), onp.int32)
+        pin = self.device.type == "cuda"
+        self._bt_host = torch.full(
+            (self.max_running, self.max_blocks_per_seq), self._trash,
+            dtype=torch.int32, pin_memory=pin)
+        self._pos_host = torch.zeros((self.max_running,), dtype=torch.int32,
+                                     pin_memory=pin)
+        self._toks_host = torch.zeros((self.max_running, 1),
+                                      dtype=torch.int32, pin_memory=pin)
+        self._bt = self._bt_host.numpy()
+        self._pos = self._pos_host.numpy()
+        self._toks = self._toks_host.numpy()
 
         self._decode_run = paged_decode_program(
             model, greedy=greedy, temperature=temperature, top_k=top_k)
-        self._prefill_runs: Dict[int, Callable] = {}
+        self._prefill_runs: Dict[int, GraphedProgram] = {}
+        # one memory pool for every prefill bucket's graph
+        self._prefill_pool = (torch.cuda.graph_pool_handle() if pin
+                              else None)
 
         self._state_lock = threading.RLock()
         self._queue = AdmissionQueue(max_queue_size, self.metrics)
@@ -239,15 +257,44 @@ class LLMEngine:
         return self.block_size * _pow2_bucket(
             -(-p // self.block_size), self.max_blocks_per_seq)
 
-    def _prefill_run(self, bucket: int) -> Callable:
+    def _prefill_run(self, bucket: int) -> GraphedProgram:
         run = self._prefill_runs.get(bucket)
         if run is None:
             run = paged_prefill_program(
                 self._model, prefill_len=bucket, block_size=self.block_size,
                 kv_cache_dtype=self._kv_dtype, greedy=self._greedy,
-                temperature=self._temperature, top_k=self._top_k)
+                temperature=self._temperature, top_k=self._top_k,
+                graph_pool=self._prefill_pool)
             self._prefill_runs[bucket] = run
         return run
+
+    # -- warmup ------------------------------------------------------------
+    def warmup(self, prompt_lengths=None) -> List[int]:
+        """Capture the decode step and the prefill buckets of
+        ``prompt_lengths`` (default: one, ``block_size``) ahead of
+        traffic, as the reference's ``warmup`` compiles them: one call
+        of each program on trash-table inputs, which on a card captures
+        its graph (on the CPU the call just runs). Returns the warmed
+        prefill buckets, those the reference's engine gives for the same
+        lengths."""
+        lens = (list(prompt_lengths) if prompt_lengths
+                else [self.block_size])
+        buckets = sorted({self._prefill_bucket(int(p)) for p in lens})
+        with self._state_lock:
+            for b in buckets:
+                ids = torch.full((b // self.block_size,), self._trash,
+                                 dtype=torch.int64)
+                self._prefill_run(b)(
+                    torch.zeros((1, b), dtype=torch.int32), 0, self._pool_k,
+                    self._pool_v, ids, self._gen)
+            trash_bt = torch.full_like(self._bt_host, self._trash)
+            self._decode_run(
+                torch.zeros_like(self._toks_host), self._pool_k,
+                self._pool_v, trash_bt, torch.zeros_like(self._pos_host),
+                self._gen)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return buckets
 
     # -- block accounting --------------------------------------------------
     def _alloc(self, n: int) -> Optional[List[int]]:
@@ -441,19 +488,18 @@ class LLMEngine:
         padded[0, :p] = req.prompt
         run = self._prefill_run(bucket)
         first, self._pool_k, self._pool_v = run(
-            self._to_dev(padded), p - 1, self._pool_k, self._pool_v,
-            self._to_dev(ids), self._gen)
+            torch.from_numpy(padded), p - 1, self._pool_k, self._pool_v,
+            torch.from_numpy(ids), self._gen)
         return int(first.cpu())
-
-    def _to_dev(self, arr: onp.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
 
     def _decode_step(self, active: List[int]) -> None:
         t0 = time.perf_counter()
         nxt, self._pool_k, self._pool_v = self._decode_run(
-            self._to_dev(self._toks), self._pool_k, self._pool_v,
-            self._to_dev(self._bt), self._to_dev(self._pos), self._gen)
-        nxt = nxt.cpu().numpy()         # the step's synchronisation point
+            self._toks_host, self._pool_k, self._pool_v, self._bt_host,
+            self._pos_host, self._gen)
+        # the step's synchronisation point: the host arrays are written
+        # again only after it, when their copies have landed
+        nxt = nxt.cpu().numpy()
         self._decode_s += time.perf_counter() - t0
         self.metrics.count("decode_steps")
         self._tokens_decode += len(active)
@@ -540,7 +586,11 @@ class LLMEngine:
 
     # -- stats / lifecycle -------------------------------------------------
     def stats(self) -> Dict:
+        """Counters, pool and timing state; ``graphs`` counts the CUDA
+        graphs captured and replayed by the decode and prefill programs
+        (0 on the CPU) and lists the prefill buckets captured."""
         c = self.metrics.snapshot()
+        progs = [self._decode_run, *self._prefill_runs.values()]
         steps = c.get("decode_steps", 0)
         prefills = c.get("prefills", 0)
         return {
@@ -560,6 +610,13 @@ class LLMEngine:
             "decode_tok_s": (self._tokens_decode / self._decode_s
                              if self._decode_s else None),
             "queue_len": len(self._queue),
+            "graphs": {
+                "captures": sum(p.captures for p in progs),
+                "replays": sum(p.replays for p in progs),
+                "capture_s": sum(p.capture_s for p in progs),
+                "prefill_buckets": sorted(
+                    b for b, p in self._prefill_runs.items() if p.captures),
+            },
         }
 
     def close(self, drain: bool = True, timeout_s: float = 60.0) -> None:
