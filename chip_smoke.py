@@ -7,6 +7,7 @@ NVIDIA H100.
                                        # decode step and one train step,
                                        # by kernel
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result)
+    python3 chip_smoke.py --resnet     # phases 1 and 9 only (no result)
     python3 chip_smoke.py --trials     # also, after phase 1, trial builds
                                        # of K4's span, K1 forward's
                                        # tiling, K5a's cluster size,
@@ -110,6 +111,29 @@ Phases (each asserts; any failure exits non-zero before the result line):
    and gradients against ``no_kernels`` and under ``default`` against
    ``highest``, and a bitwise ``.params`` round trip. Its kernels (K2r RMSNorm, kernel R through two user sources) are
    checked in phase 2 (:func:`frontdoor_kernel_checks`).
+
+9. The ResNet path (:func:`resnet_phase`): ResNet-50 v1 at full width
+   (classes 1000, 224x224, batch 32) through ``vision.get_model``,
+   ``initialize()``, a forward that completes the deferred shapes and
+   seeded weights through ``from_jax_params``. Inference eager and
+   hybridized (one CUDA graph, replayed) under ``highest``, ``default``
+   and in bfloat16 after ``net.cast("bfloat16")``, with img/s, host and
+   device ms and the busy share: a replay equals an eager call bitwise,
+   ``functionalize``'s fn equals the block bitwise, computes with the
+   params it is given and leaves them unchanged, a training-mode (not recording) replay equals the eager
+   call in its output and running statistics
+   (:func:`train_mode_replay`), the logits hold against the port on the
+   CPU (highest),
+   and default and bfloat16 against highest. Training through
+   ``SoftmaxCrossEntropyLoss`` and ``Trainer(net.collect_params(),
+   "sgd")`` (lr 0.05, momentum 0.9) under each policy: a falling loss,
+   moved running statistics that the Trainer leaves alone, K3 once per
+   step and no other kernel, and a B 4 step's loss and gradients under
+   default against highest and on the card against the CPU
+   (:func:`resnet_grad_checks`). It prints BASELINE.md's V100 rows beside the card's
+   numbers as the published yardstick. The path runs no kernel of the
+   port but K3 (the loss): convolution, pooling and BatchNorm are cuDNN
+   and torch's own kernels, as the reference leaves them to XLA.
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -1253,6 +1277,20 @@ def train_kernel_checks(torch, dev):
     check(err <= 1e-5, f"cross_entropy_lse bf16: {err}")
     cases.append({"name": "cross_entropy_lse", "case": "bf16",
                   "max_abs_err": err, "limit": 1e-5})
+    # K3 at the ResNet-50 train step's (32, 1000) f32 logits (phase 9)
+    n, vocab = 32, 1000
+    x = randn(n, vocab) * 2.0
+    labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
+    err = (kce.fused_lse(x) - kce.lse_plain(x)).abs().max().item()
+    with tnn.no_kernels():
+        pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
+    err = max(err, (kce.cross_entropy_with_logits(x, labels) - pnll
+                    ).abs().max().item())
+    print(f"cross_entropy_lse and cross_entropy_with_logits ({n}, {vocab}) "
+          f"f32: max_abs_err {err:.3e} (limit 1e-5)", flush=True)
+    check(err <= 1e-5, f"cross_entropy_lse ({n}, {vocab}): {err}")
+    cases.append({"name": "cross_entropy_lse", "case": f"({n}, {vocab}) f32",
+                  "max_abs_err": err, "limit": 1e-5})
     return rows, cases, extra
 
 
@@ -1605,7 +1643,7 @@ def frontdoor_steps(torch, dev, card, wrappers, step, profile, policy):
           f"{peak / 2**30:.3f} GiB; launches over {FD_STEPS} steps {counts}",
           flush=True)
     if profile:
-        dev_ms, wall_ms = profile_train_step(
+        dev_ms, wall_ms, _ = profile_train_step(
             torch, step, f"frontdoor_profile_{policy}.txt")
         out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms}
         print(f"front-door step ({policy}), profiler: device ms summed over "
@@ -2092,10 +2130,25 @@ def policy_diff(torch, what, loss_d, grad_d, loss_h, grad_h):
             "worst_grad": worst_name}
 
 
+# Device time by kind. A kernel takes the kind of the outermost torch op
+# above the one that launched it, where that op is a convolution (cuDNN
+# runs 1x1 convolutions as GEMMs and its FFT algorithm as complex GEMMs,
+# and transposes layouts, so a kernel's name does not tell) or a product
+# (cuBLAS); else, by its name, a torch reduction (BatchNorm's var_mean
+# and its backward sums, the loss's); the rest is elementwise work and
+# copies. Each kind's top kernels are printed with it.
+OP_KINDS = {"aten::convolution": "convolution",
+            "aten::convolution_backward": "convolution",
+            "aten::mm": "product", "aten::addmm": "product",
+            "aten::bmm": "product", "aten::baddbmm": "product"}
+REDUCE_KERNEL = re.compile(r"at::native::reduce_kernel")
+
+
 def profile_train_step(torch, step, fname="train_profile.txt"):
     """``--profile``: torch.profiler over one train step; writes the table
-    by kernel to chiprun_out/``fname``. Returns (device ms summed over
-    kernels, wall ms of the profiled step)."""
+    by kernel to chiprun_out/``fname``, with each kind's top kernels.
+    Returns (device ms summed over kernels, wall ms of the profiled
+    step, device ms by kind: see :data:`OP_KINDS`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2107,14 +2160,41 @@ def profile_train_step(torch, step, fname="train_profile.txt"):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     avgs = prof.key_averages()
     table = avgs.table(sort_by="self_device_time_total", row_limit=40)
+    split = {"convolution": 0.0, "product": 0.0, "reduction": 0.0,
+             "other": 0.0}
+    by_kind = {kind: {} for kind in split}
+
+    def walk(e, kind):
+        kind = kind or OP_KINDS.get(e.name)
+        for k in e.kernels:
+            got = kind or ("reduction" if REDUCE_KERNEL.search(k.name)
+                           else "other")
+            split[got] += k.duration / 1e3
+            by_kind[got][k.name] = by_kind[got].get(k.name, 0.0) \
+                + k.duration / 1e3
+        for child in e.cpu_children:
+            walk(child, kind)
+
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+            walk(e, None)
+    total = sum(e.self_device_time_total for e in avgs
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation) / 1e3
+    attributed = sum(split.values())
+    # kernels no op launched (none expected) count as other
+    split["other"] += max(total - attributed, 0.0)
+    tops = [f"device ms {total:.3f}, {attributed:.3f} of it under a torch op"]
+    for kind, rows in by_kind.items():
+        tops.append(f"{kind}: {split[kind]:.3f} ms over {len(rows)} kernels")
+        tops += [f"  {ms:9.3f} ms  {name[:140]}" for name, ms in
+                 sorted(rows.items(), key=lambda r: -r[1])[:6]]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", fname), "w") as fh:
-        fh.write(table)
+        fh.write(table + "\n" + "\n".join(tops) + "\n")
     print(table, flush=True)
-    dev_us = sum(e.self_device_time_total for e in avgs
-                 if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation)
-    return (dev_us / 1e3 if dev_us else None), wall_ms
+    print("\n".join(tops), flush=True)
+    return (total if total else None), wall_ms, split
 
 
 def train_phase(torch, model, dev, card, wrappers, profile, policy):
@@ -2176,7 +2256,7 @@ def train_phase(torch, model, dev, card, wrappers, profile, policy):
           f"{peak / 2**30:.3f} GiB; launches over {TRAIN_STEPS} steps "
           f"{counts}", flush=True)
     if profile:
-        dev_ms, wall_ms = profile_train_step(
+        dev_ms, wall_ms, _ = profile_train_step(
             torch, step, f"train_profile_{policy}.txt")
         out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms}
         print(f"train step, profiler: device ms summed over kernels "
@@ -2184,6 +2264,490 @@ def train_phase(torch, model, dev, card, wrappers, profile, policy):
               f"wall ms {wall_ms:.3f}"
               + ("" if dev_ms is None else
                  f", device busy {dev_ms / wall_ms:.3f}"), flush=True)
+    return out
+
+
+# -- phase 9: the ResNet path ------------------------------------------------
+# ResNet-50 v1 at the repo's flagship settings: classes 1000, 224x224,
+# batch 32 (bench.py:291, __graft_entry__.py:36), trained by SGD with
+# momentum 0.9 and lr 0.05 on uniform [0, 1) images and random labels
+# (benchmark/train_bench.py:46-131)
+RN_B, RN_HW, RN_CLASSES = 32, 224, 1000
+RN_ITERS, RN_STEPS = 20, 5
+# BASELINE.md's V100 rows at batch 32 (MXNet 1.2.0, cuDNN 7.0.5): the
+# published yardstick, not numbers of this card
+V100_IMG_S = {"inference f32": 1076.81, "inference fp16": 2085.51,
+              "training f32": 298.51}
+# Tolerances of phase 9, as a share of the reference logits' largest
+# magnitude. The card under highest against the port on the CPU: both
+# IEEE f32, sums in another order through 54 layers. The default
+# policy against highest: TF32 operands (10 mantissa bits) in every
+# convolution and the classifier; rounding both operands of each to
+# TF32 on the CPU moved the logits by 2.9e-4 of their largest magnitude
+# at these weights (B 2, 224x224), and 5e-3 leaves 17x for cuDNN's own
+# algorithms. bfloat16 parameters and activations against f32: 5.3e-3
+# on the CPU the same way, 3e-2 leaves 5.7x.
+RN_CPU_TOL, RN_POLICY_TOL, RN_BF16_TOL = 1e-4, 5e-3, 3e-2
+
+
+def resnet_weights(net, seed):
+    """Numpy weights under the reference's names, in the shapes a forward
+    completed: convolution weights uniform in [-0.07, 0.07) (the scale of
+    both packages' default initializer), the classifier's normal with
+    std 0.01, BatchNorm gains and running variances in [1, 1.2) but the
+    gain that closes each residual body ten times smaller (a small-gain
+    residual start, as Goyal et al. 2017 zero it), the rest normal with
+    std 0.1. With the body gains at 1 the residual sums grow over the 16
+    blocks, and SGD at lr 0.05 with momentum 0.9 climbs after two steps
+    (a CPU run at B 32, 64x64: 9.09 -> 5.07 -> 15.77 in 6 steps); with
+    them small it falls (6.97 -> 0.39)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in net.collect_params().items():
+        shape = tuple(p.shape)
+        if name == "output.weight":
+            out[name] = rng.standard_normal(shape, dtype=np.float32) * \
+                np.float32(0.01)
+        elif name.endswith("weight"):
+            out[name] = (rng.random(shape, dtype=np.float32) - 0.5) * \
+                np.float32(0.14)
+        elif name.endswith(("gamma", "running_var")):
+            out[name] = 1 + 0.2 * rng.random(shape, dtype=np.float32)
+            if name.endswith("body.7.gamma"):
+                out[name] *= np.float32(0.1)
+        else:
+            out[name] = 0.1 * rng.standard_normal(shape, dtype=np.float32)
+    return out
+
+
+def resnet_macs(torch, net, x):
+    """Multiply-adds per image of one forward, from the convolution and
+    Dense layers' output and weight shapes (forward hooks)."""
+    from mxnet_tpu_torch.gluon import nn
+
+    macs = []
+
+    def hook(block, inputs, out):
+        macs.append(out[0].numel() * block.weight.data()[0].numel())
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (nn.Conv2D, nn.Dense))]
+    with torch.no_grad():
+        net(x[:1])
+    for h in handles:
+        h.detach()
+    return sum(macs), len(macs)
+
+
+def resnet_inference(torch, net, x, card, what, macs):
+    """One inference mode of phase 9 (``what``): the block eager, then
+    hybridized. The first hybridized call captures a CUDA graph and the
+    second replays it; the replay must equal the eager call bitwise, and
+    still equal it after a replay on other inputs (the block returns
+    copies of the graph's static outputs).
+    Then each is timed over RN_ITERS calls (``time_ms``): img/s from the
+    host ms per call (a loop that ends in a synchronise), the device ms
+    per call behind a spin kernel, the busy share."""
+    net.hybridize(False)
+    with torch.no_grad():
+        eager = net(x)
+        eager_t = time_ms(lambda i: net(x), iters=RN_ITERS, warmup=2)
+    net.hybridize()
+    t0 = time.perf_counter()
+    net(x)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay = net(x)
+    check(net.captures == 1 and net.replays == 2,
+          f"{what}: {net.captures} captures, {net.replays} replays")
+    check(torch.equal(replay, eager), f"{what}: a replay differs from the "
+          f"eager call by {(replay - eager).abs().max().item()}")
+    replay_t = time_ms(lambda i: net(x), iters=RN_ITERS, warmup=2)
+    check(net.captures == 1, f"{what}: captured again while timing")
+    other = net(x.flip(0))          # the same graph, other logits
+    check(not torch.equal(other, replay) and torch.equal(replay, eager),
+          f"{what}: logits kept from a replay changed under a later replay "
+          "(not a copy of the graph's output)")
+    row = {"capture_s": capture_s, "replay_equals_eager": True}
+    for mode, (dev_ms, host_ms) in (("eager", eager_t),
+                                     ("replayed", replay_t)):
+        row[mode] = {"device_ms": dev_ms, "host_ms": host_ms,
+                     "img_s": RN_B / host_ms * 1e3,
+                     "device_busy": dev_ms / host_ms}
+        print(f"resnet50_v1 inference {what} on {card}, {mode}: "
+              f"{row[mode]['img_s']:.1f} img/s (B{RN_B}, {RN_HW}x{RN_HW}, "
+              f"mean of {RN_ITERS} calls), host_ms {host_ms:.4f}, "
+              f"device_ms {dev_ms:.4f}, device busy "
+              f"{dev_ms / host_ms:.3f}; {2 * macs * RN_B / dev_ms / 1e9:.1f}"
+              f" TFLOP/s on the layers' multiply-adds", flush=True)
+    print(f"resnet50_v1 inference {what}: one replay equals one eager call "
+          f"bitwise; capture and first replay {capture_s:.3f} s", flush=True)
+    return row, eager
+
+
+def train_mode_replay(torch, net, weights, x):
+    """A hybridized call in training mode, not recording (batch
+    statistics, running statistics moved in place): its first call
+    captures and replays once, and must give the eager call's output and
+    statistics bitwise, from the same seeded statistics (the capture's
+    warm-up run leaves them as it found them); a second call moves them
+    again. It leaves the net with the seeded weights and statistics."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import from_jax_params
+
+    stats = [p.data() for n, p in net.collect_params().items()
+             if n.endswith(("running_mean", "running_var"))]
+    outs = []
+    for active in (False, True):
+        from_jax_params(weights, net)
+        net.hybridize(active)
+        with torch.no_grad(), autograd.train_mode():
+            outs.append((net(x), [t.clone() for t in stats]))
+    check(net.captures == 1 and net.replays == 1,
+          f"training-mode call: {net.captures} captures, {net.replays} "
+          "replays")
+    (eager, eager_stats), (replay, replay_stats) = outs
+    check(torch.equal(replay, eager)
+          and all(torch.equal(a, b) for a, b in zip(replay_stats,
+                                                    eager_stats)),
+          "a training-mode replay differs from the eager call")
+    with torch.no_grad(), autograd.train_mode():
+        net(x)
+    check(net.replays == 2 and not torch.equal(stats[0], eager_stats[0]),
+          "the second training-mode replay did not move the statistics")
+    net.hybridize(False)
+    from_jax_params(weights, net)       # the seeded statistics again
+    print("resnet50_v1 hybridized in training mode (not recording): the "
+          "capturing call equals the eager call bitwise, its output and all "
+          f"{len(stats)} running statistics (moved once); the next replay "
+          "moves them again", flush=True)
+
+
+def resnet_grads(torch, net, weights, x, y):
+    """A train-mode forward and backward from the seeded weights and
+    statistics: (per-example loss, name -> gradient)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    from_jax_params(weights, net)
+    params = net.collect_params()
+    with autograd.record():
+        loss = SoftmaxCrossEntropyLoss()(net(x), y)
+    autograd.backward(loss)
+    grads = {n: p.grad().clone() for n, p in params.items()
+             if p.grad_req != "null"}
+    net.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def resnet_train(torch, net, weights, x, y, card, wrappers, macs, policy,
+                 profile):
+    """Phase 9's train steps under ``policy`` (set by the caller), from
+    the seeded weights and statistics: SoftmaxCrossEntropyLoss and
+    ``Trainer(net.collect_params(), "sgd", lr 0.05, momentum 0.9)``. In
+    the warm-up step, the parameters whose grad_req is null (the
+    BatchNorm statistics) move in the forward and not in the Trainer's
+    step. Then RN_STEPS timed steps: the loss falls below the warm-up's,
+    every running statistic has moved from its seeded value, the
+    hybridized block replays no graph while recording, and the only
+    kernel of the port launched is K3, once per step (the loss)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    dev = x.device
+    from_jax_params(weights, net)
+    params = net.collect_params()
+    stats = {n: p for n, p in params.items() if p.grad_req == "null"}
+    check(len(stats) == 106 and all(n.endswith(("running_mean",
+                                                "running_var"))
+                                    for n in stats),
+          f"grad_req null: {sorted(stats)[:4]}... ({len(stats)})")
+    trainer = Trainer(params, "sgd", {"learning_rate": 0.05,
+                                      "momentum": 0.9})
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def forward_backward():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss)
+        return loss.detach()
+
+    def step():
+        loss = forward_backward()
+        trainer.step(RN_B)
+        return loss
+
+    graphs = (net.captures, net.replays)
+    first = forward_backward().mean().item()          # the warm-up step
+    moved = {n: p.data().clone() for n, p in stats.items()}
+    trainer.step(RN_B)
+    check(all(torch.equal(p.data(), moved[n]) for n, p in stats.items()),
+          "the Trainer changed a parameter whose grad_req is null")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    losses, host_ms, span_ms = [], [], []
+    for _ in range(RN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        span_ms.append(start.elapsed_time(end))
+        losses.append(loss.mean().item())
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers}, cross_entropy_lse=RN_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)) and np.isfinite(first),
+          f"non-finite loss {first} {losses}")
+    check(losses[-1] < first, f"loss did not fall: {first} -> {losses}")
+    check(counts == want, f"ResNet train launches {counts} != {want}")
+    check((net.captures, net.replays) == graphs,
+          "a graph replayed while recording")
+    still = [n for n, p in stats.items()
+             if torch.equal(p.data().cpu(), torch.from_numpy(weights[n]))]
+    check(not still, f"running statistics that did not move: {still[:4]}")
+    step_ms = float(np.mean(host_ms))
+    out = {"warmup_loss": first, "losses": losses, "host_ms": host_ms,
+           "device_span_ms": span_ms, "step_ms": step_ms,
+           "img_s": RN_B / step_ms * 1e3, "max_memory_allocated": peak,
+           "launches": counts, "policy": policy}
+    print(f"resnet50_v1 train on {card}, matmul precision {policy}: B{RN_B} "
+          f"{RN_HW}x{RN_HW} SGD momentum 0.9 lr 0.05, "
+          f"SoftmaxCrossEntropyLoss; loss {first:.5f} (warm-up) -> "
+          f"{[round(v, 5) for v in losses]}; step ms (host wall to a "
+          f"synchronise) {[round(v, 3) for v in host_ms]}, device span ms "
+          f"(CUDA events) {[round(v, 3) for v in span_ms]}; "
+          f"{out['img_s']:.1f} img/s; {6 * macs * RN_B / step_ms / 1e9:.1f} "
+          f"TFLOP/s on 3x the forward's multiply-adds; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; launches over "
+          f"{RN_STEPS} steps {counts}; all {len(stats)} running statistics "
+          f"moved, none by the Trainer", flush=True)
+    if profile:
+        dev_ms, wall_ms, split = profile_train_step(
+            torch, step, f"resnet_train_profile_{policy}.txt")
+        check(dev_ms is not None, "the profiler saw no device time")
+        out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms,
+                          "by_kind_ms": split}
+        print(f"resnet50_v1 train step ({policy}), profiler: device ms "
+              f"summed over kernels {dev_ms:.3f}, wall ms {wall_ms:.3f}, "
+              f"device busy {dev_ms / wall_ms:.3f}; device ms by kind "
+              f"{ {k: round(v, 3) for k, v in split.items()} }", flush=True)
+    return out
+
+
+# A B 4 train step's gradients, per parameter, as ||err|| / ||g|| (the
+# Frobenius norm). The per-entry max measure of the other paths does not
+# hold here: IEEE f32 on the card against IEEE f32 on the CPU already
+# differ by up to 6.8e-2 of a gradient's largest entry (measured on one
+# H100), since each weight gradient of a random ResNet is a sum of ~10^3
+# to 10^5 products that nearly cancel, so a sum's error is its terms'
+# rounding times a large cancellation factor. In norm the card and the
+# CPU differ by at most 8.0e-3 there; 2e-2 is the limit. The default
+# policy rounds every convolution's operands to TF32 (2^-11) in the
+# forward and in both backward products: 6.9e-2 to 1.16e-1 per
+# parameter at B 4, 8, 16 and 32 alike, 1.9e-2 over all parameters
+# together (measured on one H100). The limits, 0.25 per parameter and
+# 5e-2 over all, hold the default policy to that error model with 2x
+# room; a wrong gradient (a layer's missing, a sign, a transposed
+# weight) is off by ~1. The losses agree to POLICY_LOSS_TOL (1e-3)
+# across policies and to 1e-5 across devices.
+RN_CPU_GRAD_TOL, RN_TF32_GRAD_TOL, RN_TF32_GLOBAL_TOL = 2e-2, 0.25, 5e-2
+
+
+def resnet_grad_checks(torch, net, cpu, weights, x, y):
+    """A B 4 train step from the seeded weights and statistics on the card
+    under highest, under default, and on the CPU (IEEE f32): the losses
+    and each parameter's gradient held to each other in norm, with the
+    limits above."""
+    from mxnet_tpu_torch.base import matmul_precision_scope
+
+    with matmul_precision_scope("highest"):
+        loss_h, grad_h = resnet_grads(torch, net, weights, x, y)
+    with matmul_precision_scope("default"):
+        loss_d, grad_d = resnet_grads(torch, net, weights, x, y)
+    loss_c, grad_c = resnet_grads(torch, cpu, weights, x.cpu(), y.cpu())
+    out = {}
+    for what, (la, ga), (lb, gb), loss_tol, tol, global_tol in (
+            ("default vs highest", (loss_d, grad_d), (loss_h, grad_h),
+             POLICY_LOSS_TOL, RN_TF32_GRAD_TOL, RN_TF32_GLOBAL_TOL),
+            ("card highest vs CPU", (loss_h.cpu(), {
+                n: g.cpu() for n, g in grad_h.items()}), (loss_c, grad_c),
+             1e-5, RN_CPU_GRAD_TOL, RN_CPU_GRAD_TOL)):
+        for g in ga.values():
+            check(torch.isfinite(g).all().item(), f"{what}: non-finite grad")
+        loss_err = ((la - lb).abs().max() / lb.abs().max()).item()
+        ratios = sorted((((ga[n] - g).norm() / g.norm()).item(), n)
+                        for n, g in gb.items())
+        flat = [torch.cat([d[n].flatten().cpu() for n in gb])
+                for d in (ga, gb)]
+        overall = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+        print(f"resnet50_v1 B4 gradients, {what}: loss relative err "
+              f"{loss_err:.3e} (limit {loss_tol:g}); {len(ratios)} "
+              f"gradients, ||err|| / ||g|| worst {ratios[-1][0]:.3e} "
+              f"({ratios[-1][1]}, limit {tol:g}), median "
+              f"{ratios[len(ratios) // 2][0]:.3e}, over all parameters "
+              f"{overall:.3e} (limit {global_tol:g})", flush=True)
+        check(loss_err <= loss_tol, f"resnet50_v1 B4 loss {what}: "
+              f"{loss_err}")
+        check(ratios[-1][0] <= tol and overall <= global_tol,
+              f"resnet50_v1 B4 gradients {what}: {ratios[-1]}, {overall}")
+        out[what] = {"loss_rel_err": loss_err, "worst": ratios[-1],
+                     "median": ratios[len(ratios) // 2][0],
+                     "all_parameters": overall}
+    return out
+
+
+def resnet_phase(torch, card, wrappers, profile):
+    """Phase 9: ResNet-50 v1, the repo's flagship entry, on the card
+    through the user's entry points: ``vision.get_model("resnet50_v1",
+    classes=1000)``, ``initialize()`` (gpu(0)), a forward that completes
+    the deferred shapes, seeded weights through ``from_jax_params``.
+    Inference at B 32, 224x224, eager and hybridized (graph replay)
+    under highest, then default, then in bfloat16 after
+    ``net.cast("bfloat16")`` under default; the card's highest logits
+    against the port on the CPU, default and bfloat16 against highest,
+    ``functionalize`` against the block, bitwise, leaving its params
+    unchanged. Then training (:func:`resnet_train`) under each policy,
+    and a B 4 step's loss and gradients under default against highest
+    and on the card against the CPU (:func:`resnet_grad_checks`).
+    Nothing of it is caught."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    t_phase = time.perf_counter()
+    dev = mx.context.resolve_device(None)
+    net = vision.get_model("resnet50_v1", classes=RN_CLASSES)
+    net.initialize()                                  # gpu(0)
+    deferred = sum(not p.initialized for p in net.collect_params().values())
+    rng = np.random.default_rng(SEED + 9)
+    x = torch.from_numpy(rng.random((RN_B, 3, RN_HW, RN_HW),
+                                    dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, RN_CLASSES, RN_B)).to(dev)
+    with autograd.pause():
+        net(x[:1])                                    # completes the shapes
+    weights = resnet_weights(net, SEED)
+    from_jax_params(weights, net)
+    params = net.collect_params()
+    n_params = sum(p.data().numel() for p in params.values())
+    macs, layers = resnet_macs(torch, net, x)
+    print(f"resnet50_v1: {len(params)} parameters ({deferred} deferred "
+          f"before the first forward), {n_params} values on "
+          f"{params['output.weight'].data().device}; {macs} multiply-adds "
+          f"per image over {layers} convolution and Dense layers", flush=True)
+    out = {"batch": RN_B, "size": RN_HW, "params": n_params,
+           "macs_per_image": macs, "card": card,
+           "v100_yardstick_img_s": V100_IMG_S}
+
+    # inference: highest, default, then bfloat16 --------------------------
+    logits = {}
+    for policy in ("highest", "default"):
+        with matmul_precision_scope(policy):
+            out[f"infer_{policy}"], logits[policy] = resnet_inference(
+                torch, net, x, card, f"f32 {policy}", macs)
+    with matmul_precision_scope("highest"):
+        net.hybridize(False)
+        fn, fparams = net.functionalize(x)
+        before = {n: t.clone() for n, t in fparams.items()}
+        # the classifier's weight zeroed in the caller's params, not in
+        # the block: fn's logits are then its bias, exactly
+        zeroed = {**fparams, "output.weight": torch.zeros_like(
+            fparams["output.weight"])}
+        with torch.no_grad():
+            fout, _ = fn(fparams, x)
+            zout, _ = fn(zeroed, x)
+            tfn, tparams = net.functionalize(x, training=True)
+            _, tnew = tfn(tparams, x)
+    check(torch.equal(fout, logits["highest"]),
+          "functionalize's fn differs from the block")
+    check(torch.equal(zout, fparams["output.bias"].expand_as(zout)),
+          "functionalize's fn did not compute with the params it was given")
+    check(all(torch.equal(t, before[n]) for n, t in fparams.items()),
+          "functionalize's fn changed its params")
+    check(all(torch.equal(t, before[n]) for n, t in tparams.items()),
+          "a training-mode fn changed its params")
+    check(not torch.equal(tnew["features.1.running_mean"],
+                          before["features.1.running_mean"]),
+          "a training-mode fn returned unmoved statistics")
+    print("functionalize: fn(params, x) equals the block's logits bitwise "
+          "(eval, highest) and leaves params unchanged; given a zero "
+          "classifier weight, its logits are the bias; a training-mode fn "
+          "returns moved statistics and leaves its params unchanged",
+          flush=True)
+    del before, fparams, zeroed, tparams, tnew
+    with matmul_precision_scope("highest"):
+        train_mode_replay(torch, net, weights, x)
+
+    cpu = vision.resnet50_v1(classes=RN_CLASSES)
+    cpu.initialize(device="cpu")
+    with torch.no_grad():
+        cpu(x[:1].cpu())
+        from_jax_params(weights, cpu)
+        ref = cpu(x[:2].cpu())
+    scale = ref.abs().max().item()
+    errs = {"card highest vs CPU (B 2)":
+            ((logits["highest"][:2].cpu() - ref).abs().max().item(), scale,
+             RN_CPU_TOL)}
+    ref = logits["highest"]
+    scale = ref.abs().max().item()
+    errs["default vs highest"] = (
+        (logits["default"] - ref).abs().max().item(), scale, RN_POLICY_TOL)
+
+    net.cast("bfloat16")
+    with matmul_precision_scope("default"):
+        out["infer_bfloat16"], logits["bfloat16"] = resnet_inference(
+            torch, net, x.bfloat16(), card, "bfloat16 default", macs)
+    errs["bfloat16 vs f32 highest"] = (
+        (logits["bfloat16"].float() - ref).abs().max().item(), scale,
+        RN_BF16_TOL)
+    net.hybridize(False)
+    net.cast("float32")
+    for name, lg in logits.items():
+        check(lg.shape == (RN_B, RN_CLASSES)
+              and torch.isfinite(lg).all().item(),
+              f"{name} logits: shape {tuple(lg.shape)} or non-finite")
+    for what, (err, mag, tol) in errs.items():
+        agree = (logits[what.split()[0]].argmax(-1) == ref.argmax(-1)
+                 ).float().mean().item() if what[:4] != "card" else None
+        print(f"resnet50_v1 logits, {what}: max|err| {err:.4e}, "
+              f"{err / mag:.3e} of the largest magnitude {mag:.4e} (limit "
+              f"{tol:g}); argmax agreement {agree}", flush=True)
+        check(err <= tol * mag, f"resnet50_v1 logits {what}: {err} > "
+              f"{tol} x {mag}")
+    out["logits_err"] = {k: {"max_abs_err": e, "scale": m, "tol": t}
+                         for k, (e, m, t) in errs.items()}
+    del logits
+
+    # training under each policy ------------------------------------------
+    net.hybridize()
+    for policy in ("highest", "default"):
+        with matmul_precision_scope(policy):
+            out[f"train_{policy}"] = resnet_train(
+                torch, net, weights, x, y, card, wrappers, macs, policy,
+                profile)
+    out["gradients_b4"] = resnet_grad_checks(torch, net, cpu, weights, x[:4],
+                                             y[:4])
+    out["seconds"] = time.perf_counter() - t_phase
+    replayed = {k: out[f"infer_{k}"]["replayed"]["img_s"]
+                for k in ("highest", "default", "bfloat16")}
+    print(f"yardstick, BASELINE.md's V100 rows at batch 32 (MXNet 1.2.0, "
+          f"published): inference f32 {V100_IMG_S['inference f32']} img/s, "
+          f"fp16 {V100_IMG_S['inference fp16']}, training f32 "
+          f"{V100_IMG_S['training f32']}; this card ({card}): inference "
+          f"replayed f32 highest {replayed['highest']:.1f}, default "
+          f"{replayed['default']:.1f}, bfloat16 {replayed['bfloat16']:.1f}; "
+          f"training highest {out['train_highest']['img_s']:.1f}, default "
+          f"{out['train_default']['img_s']:.1f}; phase 9 took "
+          f"{out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -2558,6 +3122,12 @@ def main(argv):
     if trials:
         results["trials"] = trial_phase(torch, dev,
                                         trials[0].partition("=")[2])
+    if "--resnet" in argv:       # phases 1 and 9 only: no result line
+        results["resnet"] = resnet_phase(torch, card, kernel_wrappers(),
+                                         "--profile" in argv)
+        write_results(results)
+        print("chip_smoke --resnet: phases 1 and 9 passed")
+        return 0
     # -- phase 2: kernels against their plain versions ----------------------
     results["launch_floor_ms"] = launch_floor(torch)
     rows = kernel_checks(torch, dev, results["launch_floor_ms"])
@@ -2774,6 +3344,11 @@ def main(argv):
     for row in rows:
         if row["name"] in ("rms_norm_fwd", "rtc_row_absmax_scale"):
             row["launches"] = front["default"]["launches"][row["name"]]
+
+    # -- phase 9: the ResNet path -----------------------------------------
+    torch.cuda.empty_cache()
+    results["resnet"] = resnet_phase(torch, card, wrappers,
+                                     "--profile" in argv)
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

@@ -15,23 +15,35 @@ torch way is collected too, under a Parameter made over it.
 ``Uniform(0.07)`` on ``gpu(0)``); parameters whose shape has zeros are
 made at the first forward, when the layer knows its input. Forward
 hooks are torch's (``hook(block, inputs, output)``, as the reference's).
-``hybridize()`` is accepted and the block runs eagerly: capturing the
-forward in a CUDA graph is later work (``ROADMAP.md``); ``export``,
-``SymbolBlock`` and ``optimize_for`` are not ported.
+:meth:`Block.functionalize` runs the forward with the caller's tensors:
+those that layers read through ``Parameter.data()`` by
+:func:`~.parameter.substituted`, and those registered the torch way by
+``torch.func.functional_call``.
+
+``HybridBlock.hybridize()`` is the reference's compiled forward (one XLA
+program per input signature) on this card: outside ``autograd.record()``
+a hybridized block on a CUDA device replays one CUDA graph per key
+(:class:`~.model_zoo.generation.GraphedProgram`). While recording, and
+on the CPU, it runs eagerly. ``export``, ``SymbolBlock`` and
+``optimize_for`` are not ported.
 """
 from __future__ import annotations
 
 import re
+import threading
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from .. import autograd
 from ..base import MXNetError
 from ..context import resolve_device
 from .. import initializer as init_mod
 from .. import serialization
-from .parameter import Parameter
+from ..ops.nn import generator, using_generator
+from .parameter import Parameter, substituted
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -147,10 +159,52 @@ class Block(nn.Module):
                 p.zero_grad()
 
     def hybridize(self, active: bool = True, **kwargs):
-        """Accepted for the reference's API; the block runs eagerly."""
+        """Hybridize (or, with ``active=False``, un-hybridize) the
+        HybridBlocks among the children; a plain Block runs eagerly."""
         for child in self.children():
             if isinstance(child, Block):
                 child.hybridize(active, **kwargs)
+
+    def functionalize(self, *example_args, training: bool = False):
+        """This block's forward as a function of its parameters
+        (reference ``block.py:685``): every ``Parameter.data()`` read
+        returns the caller's tensor (:func:`~.parameter.substituted`),
+        and ``torch.func.functional_call`` substitutes the tensors
+        registered the torch way.
+
+        Returns ``(fn, params)``: ``params`` maps every
+        :meth:`collect_params` name to its tensor (detached, sharing the
+        parameter's storage), and ``fn(params, *inputs, key=None)``
+        returns ``(outputs, new_params)``. ``new_params`` is ``params``
+        with the state a forward updates (BatchNorm's running
+        statistics, under ``training=True``) replaced by new tensors:
+        ``fn`` writes those into copies and leaves ``params`` and the
+        block unchanged. ``training`` selects the mode of BatchNorm and
+        Dropout, as the reference's; ``key``, a ``torch.Generator``, is
+        what random draws take instead of the device's generator. A
+        hybridized block runs eagerly inside ``fn``. Deferred shapes are
+        completed by one forward on ``example_args`` in predict mode."""
+        from torch.func import functional_call
+
+        if not all(p.initialized for p in self.collect_params().values()):
+            with autograd.pause(train_mode=False), _graphs_off():
+                self(*example_args)
+        named = self.collect_params()
+        params = {n: p.data().detach() for n, p in named.items()}
+        # what a training forward writes in place: copies of it, per call
+        state = ([n for n, p in named.items() if not p._differentiable]
+                 if training else [])
+        mode = autograd.train_mode if training else autograd.predict_mode
+
+        def fn(params, *inputs, key=None):
+            new = dict(params)
+            new.update((n, params[n].clone()) for n in state)
+            with mode(), _graphs_off(), using_generator(key), \
+                    substituted((p, new[n]) for n, p in named.items()):
+                out = functional_call(self, new, inputs)
+            return out, new
+
+        return fn, params
 
     # -- checkpointing (reference block.py:440 / :496) -------------------------
     def save_parameters(self, filename: str, deduplicate: bool = False):
@@ -198,7 +252,117 @@ class Block(nn.Module):
         raise NotImplementedError
 
 
+class _GraphsOff(threading.local):
+    def __init__(self):
+        self.depth = 0
+
+
+_graphs_off_state = _GraphsOff()
+
+
+@contextmanager
+def _graphs_off():
+    """Hybridized blocks run eagerly inside the scope (``functionalize``
+    substitutes tensors that a captured graph would not read)."""
+    _graphs_off_state.depth += 1
+    try:
+        yield
+    finally:
+        _graphs_off_state.depth -= 1
+
+
 class HybridBlock(Block):
     """A Block whose forward the reference traces into one program
-    (reference block.py:854). Here ``hybridize()`` is accepted and the
-    forward runs eagerly, op by op."""
+    (reference block.py:854).
+
+    After :meth:`hybridize`, a call outside ``autograd.record()`` with
+    tensor inputs and no keyword arguments, on parameters that lie on a
+    CUDA device, replays a CUDA graph of the forward: one graph per key,
+    which is the inputs' shapes and dtypes, the training flag, the
+    matmul precision policy, :class:`~...ops.nn.no_kernels`, and every
+    parameter's address, shape and dtype. After a ``cast`` (new storage)
+    the next call captures anew; what ``load_parameters`` or
+    ``set_data`` write in place the next replay reads. The first call of
+    a key runs the forward once and captures it; a training-mode
+    forward's BatchNorm statistics move once per call all the same.
+    Forward hooks run around each call, as the reference's around its
+    cached program. The outputs are copies of the graph's, which the
+    next replay overwrites. While recording, and on the CPU, the block
+    runs eagerly, as it does before ``hybridize()`` and after
+    ``hybridize(False)``. ``captures`` and ``replays`` count the block's
+    graphs."""
+
+    def __init__(self):
+        super().__init__()
+        self._active = False
+        self._programs: Dict[tuple, object] = {}
+
+    def hybridize(self, active: bool = True, static_alloc: bool = False,
+                  static_shape: bool = False, inline_limit: int = 2,
+                  backend=None, backend_opts=None, **kwargs):
+        """Replay the forward as CUDA graphs (``active=False``: run it
+        eagerly and drop the graphs). The reference's compile options
+        are accepted; only the outermost hybridized block captures, its
+        children run inside its graph."""
+        self._active = active
+        self._programs = {}
+        super().hybridize(False)
+
+    @property
+    def captures(self) -> int:
+        return sum(p.captures for p in self._programs.values())
+
+    @property
+    def replays(self) -> int:
+        return sum(p.replays for p in self._programs.values())
+
+    def __call__(self, *args, **kwargs):
+        params = None if kwargs else self._graph_params(args)
+        if params is None:
+            return super().__call__(*args, **kwargs)
+        for hook in self._forward_pre_hooks.values():
+            new = hook(self, args)
+            if new is not None:
+                args = new if isinstance(new, tuple) else (new,)
+        out = self._replay(args, params)
+        for hook in self._forward_hooks.values():
+            hook(self, args, out)
+        return out
+
+    def _graph_params(self, args):
+        """The parameters' tensors when this call replays a graph, else
+        None (the call runs eagerly)."""
+        if (not self._active or _graphs_off_state.depth
+                or autograd.is_recording()
+                or not all(isinstance(a, torch.Tensor) for a in args)):
+            return None
+        params = list(self.collect_params().values())
+        if not all(p.initialized for p in params):
+            return None         # the eager call completes the shapes
+        tensors = [p.data() for p in params]
+        if not all(t.is_cuda for t in tensors or args):
+            return None
+        return tensors
+
+    def _replay(self, args, params):
+        from .model_zoo.generation import GraphedProgram
+
+        training = autograd.is_training()
+        prog = self._programs.get((training, len(args)))
+        if prog is None:
+            n = len(args)
+
+            def body(*call):
+                with torch.no_grad():
+                    return self.forward(*call[:n])
+
+            state = [p.data() for p in self.collect_params().values()
+                     if not p._differentiable]
+            prog = self._programs[(training, n)] = GraphedProgram(
+                f"{type(self).__name__}.forward", body, range(n),
+                (id(self), training), training, state=lambda: state)
+        gen = generator(params[0].device if params else args[0].device)
+        out = prog(*args, *params, gen)
+        if isinstance(out, (tuple, list)):
+            return type(out)(t.clone() for t in out)
+        return out.clone()

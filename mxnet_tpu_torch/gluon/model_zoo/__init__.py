@@ -1,4 +1,4 @@
 """Model zoo of the PyTorch port."""
-from . import bert, generation
+from . import bert, generation, vision
 
-__all__ = ["bert", "generation"]
+__all__ = ["bert", "generation", "vision"]

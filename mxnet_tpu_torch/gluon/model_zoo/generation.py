@@ -172,19 +172,24 @@ class GraphedProgram:
     what its capture launched to each wrapper's ``.launches``: counts
     stay exact per replayed step. Outputs are the graph's static
     tensors, overwritten by the next replay. The graph also reads the
-    model's parameters where they lay at capture. :meth:`eager` runs the
+    model's parameters where they lay at capture. ``state``, where
+    given, returns the tensors the step updates in place that the
+    warm-up run must leave as it found them (BatchNorm's running
+    statistics in a training-mode forward), so that a call which
+    captures updates them once, as a replay does. :meth:`eager` runs the
     body itself on the same inputs; on the CPU every call does.
     ``captures``, ``replays`` and ``capture_s`` count the program's
     graphs."""
 
     def __init__(self, label, body, fed, settings, sampling,
-                 graph_pool=None):
+                 graph_pool=None, state=None):
         self.label = label
         self._body = body
         self._fed = tuple(fed)
         self._settings = settings
         self._sampling = sampling
         self._pool = graph_pool
+        self._state = state
         self._graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
         self.replays = 0
@@ -196,7 +201,7 @@ class GraphedProgram:
                else torch.tensor([int(a)], dtype=torch.int64)
                for i, a in enumerate(args) if i in self._fed]
         held = [a for i, a in enumerate(args) if i not in self._fed]
-        return fed, held, held[0].device
+        return fed, held, (held or fed)[0].device
 
     def _join(self, args, fed):
         it = iter(fed)
@@ -247,7 +252,11 @@ class GraphedProgram:
         side = _capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
+            kept = [(t, t.clone()) for t in
+                    (self._state() if self._state else ())]
             self._body(*inputs, generator)
+            for t, was in kept:
+                t.copy_(was)
         torch.cuda.current_stream(dev).wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()

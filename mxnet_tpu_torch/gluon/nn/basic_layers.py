@@ -1,7 +1,8 @@
 """Basic layers of the PyTorch port (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
 ``HybridSequential``, ``Dense``, ``Dropout``, ``Activation``,
-``Embedding``, ``Lambda`` and ``HybridLambda``, on the port's
+``Embedding``, ``Flatten``, ``Identity``, ``Lambda`` and
+``HybridLambda``, on the port's
 :class:`~..block.Block` and :class:`~..parameter.Parameter`. Parameter
 names and layouts are the reference's (``Dense.weight`` is
 (units, in_units)), and ``Dense`` without ``in_units`` completes its
@@ -17,7 +18,8 @@ from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Activation", "Embedding", "Lambda", "HybridLambda"]
+           "Activation", "Embedding", "Flatten", "Identity", "Lambda",
+           "HybridLambda"]
 
 
 class Sequential(Block):
@@ -151,6 +153,21 @@ class Embedding(HybridBlock):
 
     def extra_repr(self):
         return f"{self._input_dim} -> {self._output_dim}"
+
+
+class Flatten(HybridBlock):
+    """Collapses every axis but the batch axis (reference
+    basic_layers.py:143)."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Identity(HybridBlock):
+    """Returns its input (reference basic_layers.py:275)."""
+
+    def forward(self, x):
+        return x
 
 
 def _function(function):

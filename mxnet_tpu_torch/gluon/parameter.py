@@ -13,8 +13,16 @@ moves write into it in place as well.
 The deferred-init contract is the reference's: a shape with 0 entries
 is completed when a layer sets it at its first forward; reading data
 before then raises :class:`DeferredInitializationError`.
+
+Inside :func:`substituted` (what ``Block.functionalize``'s ``fn`` runs
+its forward in) :meth:`Parameter.data` returns the caller's tensor
+instead, on that thread only, so every layer that reads its parameters
+through ``data()`` computes with the caller's tensors.
 """
 from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
 
 import torch
 from torch.nn.parameter import UninitializedParameter
@@ -25,6 +33,26 @@ from ..ndarray.ndarray import GRAD_REQS, from_numpy
 from .. import initializer as init_mod
 
 __all__ = ["Parameter", "Constant", "DeferredInitializationError"]
+
+
+class _Substitution(threading.local):
+    tensors = None          # {Parameter: tensor} inside substituted()
+
+
+_subst = _Substitution()
+
+
+@contextmanager
+def substituted(pairs):
+    """:meth:`Parameter.data` returns ``tensor`` for each ``(Parameter,
+    tensor)`` of ``pairs`` inside the scope, on this thread (the
+    reference's ``substitute_params``)."""
+    was = _subst.tensors
+    _subst.tensors = {**(was or {}), **dict(pairs)}
+    try:
+        yield
+    finally:
+        _subst.tensors = was
 
 
 class DeferredInitializationError(MXNetError):
@@ -194,7 +222,10 @@ class Parameter:
                          "call .initialize()")
 
     def data(self, ctx=None) -> torch.nn.Parameter:
-        """The parameter's tensor (a ``torch.nn.Parameter``)."""
+        """The parameter's tensor (a ``torch.nn.Parameter``), or the one
+        :func:`substituted` gives it."""
+        if _subst.tensors is not None and self in _subst.tensors:
+            return _subst.tensors[self]
         if not self._ready:
             self._check_initialized()
         return self._var

@@ -8,11 +8,14 @@ reference's does.
 """
 from __future__ import annotations
 
+import torch
+
 from ..autograd import is_training
 from ..ops import nn as _nn
 
-__all__ = ["fully_connected", "activation", "layer_norm", "rms_norm",
-           "softmax", "log_softmax", "dropout", "embedding", "pick"]
+__all__ = ["fully_connected", "activation", "convolution", "deconvolution",
+           "pooling", "batch_norm", "layer_norm", "rms_norm", "softmax",
+           "log_softmax", "dropout", "embedding", "pick"]
 
 
 def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
@@ -24,6 +27,53 @@ def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
 
 def activation(x, act_type="relu"):
     return _nn.activation(x, act_type)
+
+
+def convolution(x, weight, bias=None, kernel=None, stride=1, dilate=1, pad=0,
+                num_filter=0, num_group=1, no_bias=False, layout="NCHW"):
+    return _nn.convolution(x, weight, None if no_bias else bias,
+                           stride=stride, dilate=dilate, pad=pad,
+                           num_group=num_group, layout=layout)
+
+
+def deconvolution(x, weight, bias=None, stride=1, dilate=1, pad=0, adj=0,
+                  num_filter=0, num_group=1, no_bias=False, layout="NCHW"):
+    return _nn.deconvolution(x, weight, None if no_bias else bias,
+                             stride=stride, dilate=dilate, pad=pad, adj=adj,
+                             num_group=num_group, layout=layout)
+
+
+def pooling(x, kernel=1, pool_type="max", stride=None, pad=0,
+            global_pool=False, count_include_pad=True, layout="NCHW",
+            pooling_convention="valid"):
+    """``pooling_convention="full"`` is ``ceil_mode``."""
+    return _nn.pooling(x, kernel, pool_type, stride, pad, global_pool,
+                       count_include_pad, layout,
+                       ceil_mode=pooling_convention == "full")
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               output_mean_var=False, axis=1):
+    """BatchNorm in training mode while
+    :func:`~mxnet_tpu_torch.autograd.is_training` (inside
+    ``autograd.record()``), with the moving statistics otherwise. In
+    training, and not with ``use_global_stats``, the new statistics are
+    written into ``running_mean`` and ``running_var`` in place, as the
+    reference's aux states. ``output_mean_var=True`` returns ``(out,
+    new_mean, new_var)``."""
+    training = is_training()
+    out, new_mean, new_var = _nn.batch_norm(
+        x, gamma, beta, running_mean, running_var, eps=eps,
+        momentum=momentum, fix_gamma=fix_gamma,
+        use_global_stats=use_global_stats, training=training, axis=axis)
+    if training and not use_global_stats:
+        with torch.no_grad():
+            running_mean.copy_(new_mean)
+            running_var.copy_(new_var)
+    if output_mean_var:
+        return out, new_mean, new_var
+    return out
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):

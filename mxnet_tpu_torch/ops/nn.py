@@ -1,6 +1,14 @@
 """Neural-network operators of the PyTorch port (counterpart of
-``mxnet_tpu/ops/nn.py``), limited to what the serving and training
-slices run.
+``mxnet_tpu/ops/nn.py``), limited to what the serving, training
+and ResNet paths run.
+
+Convolution, pooling and BatchNorm have no kernel of the port's own: the
+reference leaves them to XLA (no Pallas kernel reaches them), and the
+port leaves the convolutions to cuDNN (``F.conv*``, which follow the
+matmul precision policy of :mod:`~mxnet_tpu_torch.base`). Where torch's
+pooling or BatchNorm computes something else than the reference (the
+window of ``ceil_mode``, an average's divisor, the running variance),
+the reference's arithmetic is written out in torch.
 
 Kernel dispatch: :func:`layer_norm`, :func:`rms_norm`, :func:`attend`,
 :func:`softmax_cross_entropy` and :func:`paged_attention` hand their
@@ -12,16 +20,19 @@ how a run holds the kernels against the plain arithmetic on the card.
 """
 from __future__ import annotations
 
+import math
 import threading
+from contextlib import contextmanager
 
 import numpy as onp
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fully_connected", "activation", "embedding", "layer_norm",
-           "rms_norm", "dropout", "generator", "dropout_generator", "seed",
-           "attend", "softmax",
-           "log_softmax", "pick", "softmax_cross_entropy",
+__all__ = ["fully_connected", "activation", "embedding", "convolution",
+           "deconvolution", "pooling", "adaptive_avg_pool2d", "batch_norm",
+           "layer_norm", "rms_norm", "dropout", "generator",
+           "dropout_generator", "seed", "using_generator", "attend",
+           "softmax", "log_softmax", "pick", "softmax_cross_entropy",
            "kv_cache_quantize", "kv_cache_dequantize", "paged_write",
            "paged_attention", "no_kernels", "kernels_enabled"]
 
@@ -71,6 +82,212 @@ def embedding(indices, weight):
 
 
 # ---------------------------------------------------------------------------
+# convolution
+# ---------------------------------------------------------------------------
+_CHANNELS_FIRST = ("NCW", "NCHW", "NCDHW")
+_CHANNELS_LAST = ("NWC", "NHWC", "NDHWC")
+
+
+def _tuple(v, n):
+    """The reference's ``_tuple``: an int repeated ``n`` times, or a
+    sequence padded with its last entry."""
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(int(a) for a in v)
+    return t if len(t) == n else t + (t[-1],) * (n - len(t))
+
+
+def _channels_last(layout):
+    if layout in _CHANNELS_FIRST:
+        return False
+    if layout in _CHANNELS_LAST:
+        return True
+    raise ValueError(f"unsupported layout {layout}")
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def convolution(x, weight, bias=None, kernel=None, stride=1, dilate=1,
+                pad=0, num_group=1, layout="NCHW"):
+    """N-D convolution (``mxnet_tpu/ops/nn.py:187``; reference
+    src/operator/nn/convolution.cc). 1-, 2- or 3-D by ``x.dim() - 2``.
+    For NCW/NCHW/NCDHW input the weight is (out, in / groups, *kernel),
+    torch's own layout; for NWC/NHWC/NDHWC input it is (out, *kernel,
+    in / groups), as the reference's dimension numbers say, and the
+    output is channels-last too. The reference's space-to-depth rewrite
+    of the stem (``_stem_space_to_depth``) computes the same taps and is
+    a TPU layout trick; cuDNN picks its own algorithm, so it is not
+    ported."""
+    ndim = x.dim() - 2
+    last = _channels_last(layout)
+    if last:
+        x = torch.movedim(x, -1, 1)
+        weight = torch.movedim(weight, -1, 1)
+    y = _CONV[ndim](x, weight, None, _tuple(stride, ndim),
+                    _tuple(pad, ndim), _tuple(dilate, ndim), num_group)
+    if bias is not None:
+        y = y + bias.reshape((1, -1) + (1,) * ndim)
+    return torch.movedim(y, 1, -1) if last else y
+
+
+def deconvolution(x, weight, bias=None, stride=1, dilate=1, pad=0, adj=0,
+                  num_group=1, layout="NCHW"):
+    """Transposed convolution (``mxnet_tpu/ops/nn.py:243``; reference
+    src/operator/nn/deconvolution.cc): the weight is (in, out / groups,
+    *kernel), torch's ``conv_transpose`` layout, and ``adj`` adds to the
+    high side of the output (torch's ``output_padding``, which must be
+    smaller than the stride or the dilation). Channels-first layouts
+    only, as the reference's."""
+    ndim = x.dim() - 2
+    if _channels_last(layout):
+        raise ValueError(f"deconvolution takes a channels-first layout, "
+                         f"not {layout}")
+    y = _CONV_T[ndim](x, weight, None, _tuple(stride, ndim),
+                      _tuple(pad, ndim), _tuple(adj, ndim), num_group,
+                      _tuple(dilate, ndim))
+    if bias is not None:
+        y = y + bias.reshape((1, -1) + (1,) * ndim)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# pooling
+# ---------------------------------------------------------------------------
+def _window_sum(xp, kernel, stride):
+    """Sum over each whole window of the padded ``xp`` (no implicit
+    padding, so every window is full): average pooling with divisor 1;
+    1-D runs as 2-D over a unit axis."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(xp.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(xp, kernel, stride, divisor_override=1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def pooling(x, kernel=1, pool_type="max", stride=None, pad=0,
+            global_pool=False, count_include_pad=True, layout="NCHW",
+            ceil_mode=False):
+    """Pooling (``mxnet_tpu/ops/nn.py:294``; reference
+    src/operator/nn/pooling.cc): ``max``, ``avg``, ``sum`` and ``lp``
+    (the square root of the sum of squares) over 1-, 2- or 3-D windows.
+
+    The reference's arithmetic: the input is padded explicitly (with
+    ``finfo.min`` for max, zeros otherwise) by ``pad`` on both sides and,
+    under ``ceil_mode``, by ``extra`` more on the high side, so that the
+    last partial window is kept; then each whole window of the padded
+    tensor is reduced. So a window may start in the padding (torch's own
+    ``ceil_mode`` drops it), and an average divides by the full window
+    size, padding and extension included, unless ``count_include_pad``
+    is False, when it divides by the input positions the window covers.
+    A global pool reduces every spatial axis: max, ``lp``, and the mean
+    for any other type (``sum`` too, as the reference)."""
+    ndim = x.dim() - 2
+    last = _channels_last(layout)
+    if last:
+        x = torch.movedim(x, -1, 1)
+    sp = tuple(range(2, 2 + ndim))
+    if global_pool:
+        if pool_type == "max":
+            out = x.amax(dim=sp, keepdim=True)
+        elif pool_type == "lp":
+            out = torch.sqrt(x.abs().square().sum(dim=sp, keepdim=True))
+        else:
+            out = x.mean(dim=sp, keepdim=True)
+        return torch.movedim(out, 1, -1) if last else out
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise ValueError(f"unknown pool_type {pool_type}")
+    kernel = _tuple(kernel, ndim)
+    stride = _tuple(stride if stride is not None else kernel, ndim)
+    pad = _tuple(pad, ndim)
+    spatial = x.shape[2:]
+    extra = (0,) * ndim
+    if ceil_mode:
+        extra = tuple(max(0, -(-(s + 2 * p - k) // st) * st + k
+                          - (s + 2 * p))
+                      for s, k, st, p in zip(spatial, kernel, stride, pad))
+    # F.pad's widths run from the last axis to the first
+    widths = [w for p, e in zip(pad[::-1], extra[::-1]) for w in (p, p + e)]
+    if pool_type == "max":
+        fill = (torch.finfo(x.dtype).min if x.dtype.is_floating_point
+                else torch.iinfo(x.dtype).min)
+        out = _MAX_POOL[ndim](F.pad(x, widths, value=fill), kernel, stride)
+    elif pool_type == "lp":
+        out = torch.sqrt(_window_sum(F.pad(x.abs().square(), widths),
+                                     kernel, stride))
+    else:
+        out = _window_sum(F.pad(x, widths), kernel, stride)
+        if pool_type == "avg":
+            if count_include_pad:
+                out = out / math.prod(kernel)
+            else:
+                ones = F.pad(torch.ones((1, 1) + tuple(spatial),
+                                        dtype=x.dtype, device=x.device),
+                             widths)
+                out = out / _window_sum(ones, kernel, stride)
+    return torch.movedim(out, 1, -1) if last else out
+
+
+def adaptive_avg_pool2d(x, output_size):
+    """``mxnet_tpu/ops/nn.py:440``: the mean over equal tiles of an
+    (N, C, H, W) input, a reshape as in the reference, so the output size
+    must divide H and W (``F.adaptive_avg_pool2d`` would take uneven
+    windows instead)."""
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    n, c, h, w = x.shape
+    oh, ow = output_size
+    if h % oh or w % ow:
+        raise ValueError(f"adaptive_avg_pool2d: output size {output_size} "
+                         f"does not divide the input's {(h, w)}")
+    return x.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm
+# ---------------------------------------------------------------------------
+def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               training=True, axis=1):
+    """BatchNorm (``mxnet_tpu/ops/nn.py:453``; reference
+    src/operator/nn/batch_norm.cc). Returns ``(out, new_moving_mean,
+    new_moving_var)`` and mutates nothing.
+
+    The reference's arithmetic, which is not ``F.batch_norm``'s: in
+    training (and without ``use_global_stats``) the batch mean and the
+    **biased** variance over every axis but ``axis`` are taken in f32
+    whatever x's dtype, and the statistics move as ``momentum · old +
+    (1 − momentum) · batch`` (torch's momentum is the complement, and its
+    running variance the unbiased one). Otherwise the moving statistics
+    normalize and come back unchanged. ``rsqrt(var + eps)`` and the
+    statistics are cast to x's dtype before they touch x; ``fix_gamma``
+    takes gamma as ones."""
+    axis = axis % x.dim()
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    bshape = [1] * x.dim()
+    bshape[axis] = x.shape[axis]
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    if training and not use_global_stats:
+        var, mean = torch.var_mean(x.float(), dim=red, correction=0)
+        new_mean = momentum * moving_mean + (1 - momentum) * mean
+        new_var = momentum * moving_var + (1 - momentum) * var
+    else:
+        mean, var = moving_mean, moving_var
+        new_mean, new_var = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    out = (x - mean.reshape(bshape).to(x.dtype)) * inv.reshape(bshape)
+    out = (out * gamma.reshape(bshape).to(x.dtype)
+           + beta.reshape(bshape).to(x.dtype))
+    return out, new_mean, new_var
+
+
+# ---------------------------------------------------------------------------
 # randomness
 # ---------------------------------------------------------------------------
 # One torch.Generator per device, shared by dropout, mx.np.random and the
@@ -87,9 +304,34 @@ def seed(value: int) -> None:
         g.manual_seed(_seed[0])
 
 
+class _GeneratorOverride(threading.local):
+    def __init__(self):
+        self.gen = None
+
+
+_override = _GeneratorOverride()
+
+
+@contextmanager
+def using_generator(gen):
+    """Inside the scope every draw takes ``gen`` (a ``torch.Generator``
+    on the draws' device), as the reference's ``functional_mode`` splits
+    its key; ``None`` changes nothing. Thread-local."""
+    prev = _override.gen
+    if gen is not None:
+        _override.gen = gen
+    try:
+        yield
+    finally:
+        _override.gen = prev
+
+
 def generator(device) -> torch.Generator:
     """The ``torch.Generator`` the port's random draws take on
-    ``device`` (created at the current seed on first use)."""
+    ``device`` (created at the current seed on first use), or the one a
+    :func:`using_generator` scope set."""
+    if _override.gen is not None:
+        return _override.gen
     device = torch.device(device)
     g = _generators.get(device)
     if g is None:

@@ -228,8 +228,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of the port or chip_smoke.py names jax or mxnet_tpu; with
     both blocked, every module of the port imports, a tiny CPU engine
     serves, the same model takes a train step through the loss and the
-    Trainer, and the front door (mx.np, a deferred RMSNorm/Dense stack,
-    rtc.TorchModule) runs."""
+    Trainer, the front door (mx.np, a deferred RMSNorm/Dense stack,
+    rtc.TorchModule) runs, and a tiny resnet18_v1(thumbnail=True) takes
+    a train step through the Trainer."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -280,6 +281,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert h.shape == (2, 3, 8)\n"
         "k = rtc.TorchModule('def f(x):\\n    return x * 2\\n')\n"
         "assert k.get_kernel('f').launch([h]).shape == h.shape\n"
+        "from mxnet_tpu_torch.gluon.model_zoo import vision\n"
+        "rn = vision.resnet18_v1(thumbnail=True, classes=5)\n"
+        "rn.initialize(device='cpu')\n"
+        "rtr = Trainer(rn.collect_params(), 'sgd',"
+        " {'learning_rate': 0.05, 'momentum': 0.9})\n"
+        "with autograd.record():\n"
+        "    rl = SoftmaxCrossEntropyLoss()(rn(torch.rand(2, 3, 8, 8)),"
+        " torch.tensor([1, 4]))\n"
+        "autograd.backward(rl)\n"
+        "rtr.step(2)\n"
+        "assert rl.shape == (2,) and torch.isfinite(rl).all()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -13,6 +13,8 @@ op at every first step. The port runs its kernel wrappers, whose plain
 versions CPU tensors take. Tolerance 1e-4 (f32 through two layers, a
 softmax over 64 classes and the optimizer, summed in another order).
 """
+import jax
+import jax.numpy as jnp
 import numpy as onp
 import pytest
 import torch
@@ -279,3 +281,50 @@ def test_to_jax_params_round_trips_through_from_jax_params():
     back = to_jax_params(half)
     onp.testing.assert_array_equal(
         back["pos_embed"], half.pos_embed.detach().float().numpy())
+
+
+def test_functionalize_computes_with_the_given_params():
+    """gpt_like's ``functionalize`` fn given the JAX net's weights while
+    the block holds its own initial ones: the logits, the mean loss and
+    the gradient of every given tensor (``word_embed.weight``'s with the
+    tied head's term) against ``jax.value_and_grad`` of the JAX
+    ``functionalize`` fn, within 1e-4; the block's own weights are left
+    as they were. The gradient is torch's autograd through ``fn``: the
+    kernels' autograd Functions take no ``torch.func`` transform."""
+    jnet, _, params = _models(6)
+    tokens = onp.random.RandomState(7).randint(0, CFG["vocab_size"],
+                                               (B, L)).astype(onp.int32)
+    with no_pallas():
+        fn, _ = jnet.functionalize(mxnp.array(tokens))
+
+        def loss_fn(p):
+            logits = fn(p, jnp.asarray(tokens))[0]
+            lp = jax.nn.log_softmax(logits[:, :-1], axis=-1)
+            nll = -jnp.take_along_axis(lp, jnp.asarray(tokens)[:, 1:, None],
+                                       axis=-1)
+            return nll.mean(), logits
+
+        (jloss, jlogits), jgrads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))({n: jnp.asarray(v)
+                                     for n, v in params.items()})
+    tnet = tbert.gpt_like(device="cpu", **CFG)
+    own = {n: t.detach().clone() for n, t in tnet.state_dict().items()}
+    tfn, tparams = tnet.functionalize(torch.from_numpy(tokens))
+    assert set(tparams) == set(params)
+    given = {n: torch.from_numpy(v).requires_grad_()
+             for n, v in params.items()}
+    x = torch.from_numpy(tokens).long()
+    with autograd.record():
+        logits = tfn(given, x)[0]
+        lp = torch.log_softmax(logits[:, :-1], -1)
+        loss = -lp.gather(-1, x[:, 1:, None]).mean()
+    grads = torch.autograd.grad(loss, list(given.values()))
+    onp.testing.assert_allclose(logits.detach().numpy(), onp.asarray(jlogits),
+                                rtol=TOL, atol=TOL)
+    onp.testing.assert_allclose(float(loss.detach()), float(jloss),
+                                rtol=TOL, atol=TOL)
+    for name, g in zip(given, grads):
+        onp.testing.assert_allclose(g.numpy(), onp.asarray(jgrads[name]),
+                                    rtol=TOL, atol=TOL, err_msg=name)
+    for n, t in tnet.state_dict().items():
+        assert torch.equal(t, own[n]), n
