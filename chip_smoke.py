@@ -8,6 +8,8 @@ NVIDIA H100.
                                        # by kernel
     python3 chip_smoke.py --kernels    # phases 1 and 2 only (no result)
     python3 chip_smoke.py --resnet     # phases 1 and 9 only (no result)
+    python3 chip_smoke.py --spec       # phases 1, 2 at phase 10's shapes,
+                                       # and 10 (no result)
     python3 chip_smoke.py --trials     # also, after phase 1, trial builds
                                        # of K4's span, K1 forward's
                                        # tiling, K5a's cluster size,
@@ -69,7 +71,11 @@ Phases (each asserts; any failure exits non-zero before the result line):
    (:func:`launch_floor`) is timed beside K2, K5a and K5b.
    K2r (RMSNorm
    forward) and R (runtime-compiled user kernels) are checked at the
-   front-door path's shapes (:func:`frontdoor_kernel_checks`).
+   front-door path's shapes (:func:`frontdoor_kernel_checks`). At
+   phase 10's shapes (:func:`spec_shape_checks`): K5a and K5b at N 64
+   (verify: 16 lanes x K+1) and N 32 (a suffix bucket), byte for byte on
+   exact inputs and timed beside ``F.linear`` at the same N, and K4 over
+   the verify's 64 virtual lanes, whose tables share the prefix blocks.
 3. The main path: gpt_like at full width (vocab 32000, units 768, hidden
    3072, 12 layers, 12 heads, max_length 2048) with seeded numpy weights
    loaded through ``from_jax_params``, served by ``LLMEngine`` with its
@@ -134,6 +140,23 @@ Phases (each asserts; any failure exits non-zero before the result line):
    numbers as the published yardstick. The path runs no kernel of the
    port but K3 (the loss): convolution, pooling and BatchNorm are cuDNN
    and torch's own kernels, as the reference leaves them to XLA.
+10. Speculative decoding and the shared-prefix block cache
+   (:func:`spec_prefix_phase`), on ``benchmark/llm_serve_bench.py``'s
+   ``spec_prefix`` workload at its full settings (SPEC_* below): the
+   full-width gpt_like with its upper layers damped as the target, a
+   1-layer draft holding its embeddings and layer 0, 48 requests sharing
+   a 448-token prefix, 16 lanes, int8 KV, ``draft_k`` 3. After an
+   untimed priming run, the spec+prefix engine's greedy tokens equal the
+   plain engine's exactly (a difference prints the target's top-2 logit
+   gap there), both timed runs launch exactly what their rounds, steps
+   and prefills imply, the prefix hit rate is above 0.9 and the cache
+   holds the prompts' full blocks and nothing else; an f32-KV spec+prefix
+   engine gives the dense ``generate``'s tokens; one replay of each of
+   the draft, verify and suffix-prefill programs equals one eager call
+   bitwise (:func:`spec_replay_equals_eager`); a sampling spec engine
+   draws anew. It prints both engines' tok/s, the acceptance and hit
+   rates, a spec round's device and host ms replayed and eager, and the
+   suffix prefill against the full prefill of the same prompt lengths.
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -1843,14 +1866,6 @@ def replay_equals_eager(torch, model, run, args, gen, prompt, wrappers):
     from mxnet_tpu_torch.gluon.model_zoo.generation import (
         paged_prefill_program)
 
-    def counts():
-        return {k: w.launches for k, w in wrappers.items()}
-
-    def zero():
-        for w in wrappers.values():
-            w.launches = 0
-
-    out = {}
     toks, pk, pv, table, pos = args
     bs = 16
     p = len(prompt)
@@ -1862,27 +1877,47 @@ def replay_equals_eager(torch, model, run, args, gen, prompt, wrappers):
     padded = torch.zeros((1, bucket), dtype=torch.int32)
     padded[0, :p] = torch.from_numpy(prompt)
     fresh = model.init_block_pool(nb + 1, bs, dtype="int8")
-    cases = (("decode", run, (pk, pv),
-              lambda call, k_, v_: call(toks, k_, v_, table, pos, gen)),
-             (f"prefill bucket {bucket}", prog, fresh,
-              lambda call, k_, v_: call(padded, p - 1, k_, v_, ids, gen)))
-    for name, program, pools, call in cases:
+    return replays_equal_eager(torch, wrappers, (
+        ("decode", run, (pk, pv), None,
+         lambda call, k_, v_: call(toks, k_, v_, table, pos, gen)),
+        (f"prefill bucket {bucket}", prog, fresh, None,
+         lambda call, k_, v_: call(padded, p - 1, k_, v_, ids, gen))))
+
+
+def replays_equal_eager(torch, wrappers, cases):
+    """For each ``(name, program, pools, expected, call)``: capture the
+    program's graph (its first call), reset the pools in place, replay
+    it once, then run one eager call on copies of the same pools. The
+    outputs (all but the two pools), the pools and the launches must be
+    bitwise equal, and the launches ``expected`` where it is given."""
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    out = {}
+    for name, program, pools, expected, call in cases:
         gk, gv = (t.clone() for t in pools)
         call(program, gk, gv)                     # captures
         gk.copy_(pools[0])
         gv.copy_(pools[1])
         zero()
-        got = call(program, gk, gv)[0].clone()
+        got = [t.clone() for t in call(program, gk, gv)[:-2]]
         replay_counts = counts()
         ek, ev = (t.clone() for t in pools)
         zero()
-        want = call(program.eager, ek, ev)[0]
+        want = call(program.eager, ek, ev)[:-2]
         eager_counts = counts()
-        same = {"tokens": torch.equal(got, want),
+        same = {"outputs": all(torch.equal(a_, b_)
+                               for a_, b_ in zip(got, want)),
                 "pool_k": torch.equal(gk, ek), "pool_v": torch.equal(gv, ev),
-                "launches": replay_counts == eager_counts}
+                "launches": replay_counts == eager_counts
+                and expected in (None, replay_counts)}
         print(f"{name}: one replay against one eager call, bitwise equal "
-              f"{same}; launches {replay_counts}", flush=True)
+              f"{same}; launches {replay_counts}"
+              + (f", expected {expected}" if expected else ""), flush=True)
         check(all(same.values()), f"{name}: replay differs from eager {same}")
         out[name] = dict(same, launches=replay_counts)
         del gk, gv, ek, ev
@@ -1956,11 +1991,11 @@ def prefill_times(torch, model, card, prompts, buckets):
     return out
 
 
-def profile_decode(torch, run, args, gen):
-    """``--profile``: torch.profiler over three decode steps; writes the
-    table by kernel to chiprun_out/decode_profile.txt and returns the
-    device time per step summed over kernels (None when the profiler saw
-    no device time)."""
+def profile_decode(torch, run, args, gen, fname="decode_profile.txt"):
+    """``--profile``: torch.profiler over three decode steps (or calls of
+    another ``run``); writes the table by kernel to chiprun_out/``fname``
+    and returns the device time per step summed over kernels (None when
+    the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1975,7 +2010,7 @@ def profile_decode(torch, run, args, gen):
     avgs = prof.key_averages()
     table = avgs.table(sort_by="self_device_time_total", row_limit=40)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "decode_profile.txt"), "w") as fh:
+    with open(os.path.join("chiprun_out", fname), "w") as fh:
         fh.write(table)
     # the device rows that the table's "Self CUDA time total" counts:
     # user annotations are device rows too, but span kernels counted
@@ -2751,6 +2786,532 @@ def resnet_phase(torch, card, wrappers, profile):
     return out
 
 
+# -- phase 10: speculative decoding and the shared-prefix block cache -------
+# benchmark/llm_serve_bench.py:289-358's spec_prefix rows at their full
+# (non-quick) settings, with the full-width gpt_like as the target: 48
+# requests, each one shared 448-token prefix (28 blocks of 16) and a
+# unique tail, (tail, max_new) cycling SPEC_CONFIGS; 16 lanes, block 16,
+# int8 KV, draft_k 3. The target's layers >= 1 have their residual
+# branches scaled by SPEC_ALPHA (the bench's damp_upper_layers), so that
+# a 1-layer draft holding the target's embeddings and layer 0 (its
+# make_draft) proposes as a distilled draft would; the acceptance rate
+# is measured
+SPEC_LANES, SPEC_K, SPEC_BS, SPEC_PREFIX = 16, 3, 16, 448
+SPEC_CONFIGS = ((4, 16), (12, 24), (20, 12), (8, 16))
+SPEC_REQUESTS, SPEC_PRIME, SPEC_ALPHA = 48, 8, 0.05
+SPEC_MAX_CONTEXT = (SPEC_PREFIX + 2 * SPEC_BS
+                    + max(n for _, n in SPEC_CONFIGS) + SPEC_K)
+
+
+def spec_lane_positions():
+    """Write positions of the 16 verify lanes: the prefix, each lane's
+    tail (cycling SPEC_CONFIGS) and a few tokens generated."""
+    return [SPEC_PREFIX + SPEC_CONFIGS[i % 4][0] + i % 7
+            for i in range(SPEC_LANES)]
+
+
+def spec_shape_checks(torch, dev, floor_ms):
+    """Phase 2, the shapes phase 10 gives K4, K5a and K5b: the verify
+    forward's N = 16 lanes x (K+1) = 64 rows and the 32-token suffix
+    bucket's N = 32, and K4 over the verify's 64 virtual lanes. K5a and
+    K5b give the plain version's outputs byte for byte on exact inputs
+    (and K5a the rounding probe's rows), then are timed on random inputs
+    with one weight set per layer beside ``F.linear`` at the same N (for
+    K5a the three products of Q, K and V in one); K4 holds to 1e-4 and
+    is timed. Returns the rows."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import fused_decode as kfd
+    from mxnet_tpu_torch.ops.kernels import paged_attention as kpa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 13)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    def dyadic(*shape, denom):
+        return torch.randint(-4, 5, shape, generator=g, device=dev) / denom
+
+    rows, u, heads, d, bs, n_sets = [], 768, 12, 64, SPEC_BS, 12
+    for n in (SPEC_LANES * (SPEC_K + 1), 32):
+        what = "verify" if n == SPEC_LANES * (SPEC_K + 1) else "suffix"
+        xx, ww, bb = (dyadic(n, u, denom=4), dyadic(3 * u, u, denom=64),
+                      dyadic(3 * u, denom=4))
+        off = [int((a_ != b_).sum().item()) for a_, b_ in zip(
+            kfd.fused_qkv_project(xx, ww, bb, heads=heads,
+                                  store_dtype=torch.int8),
+            kfd.qkv_project_plain(xx, ww, bb, heads, torch.int8))]
+        aa, wo_, bo_ = (dyadic(n, u, denom=4), dyadic(u, u, denom=64),
+                        dyadic(u, denom=4))
+        off_out = int((kfd.fused_out_project(aa, wo_, bo_)
+                       != kfd.out_project_plain(aa, wo_, bo_)).sum().item())
+        print(f"qkv_project N{n} ({what}) dyadic inputs: q, K and V "
+              f"differing from the plain version in {off} elements; "
+              f"out_project N{n}: {off_out} (must be 0)", flush=True)
+        check(off == [0, 0, 0] and off_out == 0,
+              f"N{n}: K5a {off}, K5b {off_out} elements differ")
+        rounding_probe_check(torch, dev, u, heads, n)
+        del xx, ww, bb, aa, wo_, bo_
+        x = randn(n, u)
+        wq = [randn(3 * u, u, scale=0.02) for _ in range(n_sets)]
+        bq = [randn(3 * u, scale=0.02) for _ in range(n_sets)]
+        got = kfd.fused_qkv_project(x, wq[0], bq[0], heads=heads,
+                                    store_dtype=torch.int8)
+        want = kfd.qkv_project_plain(x, wq[0], bq[0], heads, torch.int8)
+        err = (got[0] - want[0]).abs().max().item()
+        for a_, b_ in zip(got[1:], want[1:]):
+            steps = (a_[..., :d].int() - b_[..., :d].int()).abs().max()
+            check(steps.item() <= 1, f"qkv_project N{n}: int8 values more "
+                  "than one step apart")
+            err = max(err, (tnn.kv_cache_dequantize(a_, torch.float32)
+                            - tnn.kv_cache_dequantize(b_, torch.float32))
+                      .abs().max().item())
+        rows.append(measure(
+            "qkv_project", f"N{n} ({what}) U{u} H{heads} int8 store", err,
+            # as at N 8: f32 sums in another order, int8 one step apart
+            0.05,
+            lambda i: kfd.fused_qkv_project(x, wq[i], bq[i], heads=heads,
+                                            store_dtype=torch.int8),
+            lambda i: kfd.qkv_project_plain(x, wq[i], bq[i], heads,
+                                            torch.int8),
+            lambda i: F.linear(x, wq[i], bq[i]),
+            4 * (3 * u * u + 3 * u + 2 * n * u) + 2 * n * heads * (d + 4),
+            2 * n * 3 * u * u, n_inputs=n_sets))
+        rows[-1].update(launch_floor_ms=floor_ms, elements_off=off)
+        del wq, bq, got, want
+        a = randn(n, u)
+        wo = [randn(u, u, scale=0.02) for _ in range(n_sets)]
+        bo = [randn(u, scale=0.02) for _ in range(n_sets)]
+        err = (kfd.fused_out_project(a, wo[0], bo[0])
+               - kfd.out_project_plain(a, wo[0], bo[0])).abs().max().item()
+        rows.append(measure(
+            "out_project", f"N{n} ({what}) U{u}", err, 1e-4,
+            lambda i: kfd.fused_out_project(a, wo[i], bo[i]),
+            lambda i: kfd.out_project_plain(a, wo[i], bo[i]),
+            lambda i: F.linear(a, wo[i], bo[i]),
+            4 * (u * u + u + 2 * n * u), 2 * n * u * u, n_inputs=n_sets))
+        rows[-1].update(launch_floor_ms=floor_ms, elements_off=off_out)
+        for r_ in rows[-2:]:
+            print(f"{r_['name']} {r_['case']}: kernel {r_['ms']:.5f} ms, "
+                  f"F.linear {r_['library_ms']:.5f} ms "
+                  f"({r_['library_ms'] / r_['ms']:.2f}x the kernel's time)",
+                  flush=True)
+        del wo, bo
+
+    # K4 over the verify's 64 virtual lanes: every lane's table starts
+    # with the 28 shared prefix blocks, then blocks of its own; lane r's
+    # token t attends positions[r] + t + 1
+    mb = -(-SPEC_MAX_CONTEXT // bs)
+    shared = SPEC_PREFIX // bs
+    own = torch.randperm(SPEC_LANES * (mb - shared), generator=g,
+                         device=dev) + shared
+    table = torch.cat([torch.arange(shared, device=dev).expand(
+        SPEC_LANES, shared), own.reshape(SPEC_LANES, -1)], 1)
+    table = table.to(torch.int32).repeat_interleave(SPEC_K + 1, 0)
+    pos = spec_lane_positions()
+    lens = [p_ + t + 1 for p_ in pos for t in range(SPEC_K + 1)]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    nb = shared + SPEC_LANES * (mb - shared) + 1
+    pools = []                          # one pool per layer, as in verify
+    for _ in range(CFG["num_layers"]):
+        kp, vp = (tnn.kv_cache_quantize(randn(nb, heads, bs, d))
+                  for _ in range(2))
+        pools.append((kp.contiguous(), vp.contiguous()))
+    q = randn(len(lens), heads, d)
+    kp, vp = pools[0]
+    out = kpa.paged_attention_kernel(q, kp, vp, table, lengths)
+    ref = kpa.paged_attention_plain(q, kp, vp, table, lengths)
+    check(torch.isfinite(out).all().item(), "paged_attention verify shape: "
+          "non-finite output")
+    tab = table.cpu().numpy()
+    live = {(int(tab[i, p_ // bs]), p_ % bs)
+            for i, n_ in enumerate(lens) for p_ in range(n_)}
+    row_bytes = kp.shape[-1] * kp.element_size()
+    nbytes = (2 * len(live) * heads * row_bytes + 2 * len(lens) * heads * d * 4
+              + 4 * len({(i // (SPEC_K + 1), c) for i, n_ in enumerate(lens)
+                         for c in range(-(-n_ // bs))}) + 4 * len(lens))
+    rows.append(measure(
+        "paged_attention",
+        f"{len(lens)} virtual lanes (verify: {SPEC_LANES} lanes x K+1) H"
+        f"{heads} D{d} bs{bs} MB{mb} int8 pools, the 28 prefix blocks "
+        f"shared, lengths {min(lens)}..{max(lens)}",
+        (out - ref).abs().max().item(), 1e-4,
+        lambda i: kpa.paged_attention_kernel(q, pools[i][0], pools[i][1],
+                                             table, lengths),
+        lambda i: kpa.paged_attention_plain(q, pools[i][0], pools[i][1],
+                                            table, lengths),
+        None, nbytes, 4 * sum(lens) * heads * d, n_inputs=len(pools)))
+    rows[-1].update(unique_live_rows=len(live))
+    del pools
+    return rows
+
+
+def spec_models(torch):
+    """Phase 10's target (phase 3's seeded gpt_like with its upper layers'
+    residual branches scaled by SPEC_ALPHA) and its 1-layer draft (the
+    target's parameters of the same name and shape)."""
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.bert import gpt_like
+
+    target = gpt_like(**CFG)
+    params = seeded_params(target, SEED)
+    for i in range(1, CFG["num_layers"]):
+        for leaf in ("attn.out_proj.weight", "attn.out_proj.bias",
+                     "ffn.ffn_2.weight", "ffn.ffn_2.bias"):
+            params[f"encoder.layer{i}.{leaf}"] *= np.float32(SPEC_ALPHA)
+    from_jax_params(params, target)
+    draft = gpt_like(**dict(CFG, num_layers=1))
+    from_jax_params({k: params[k] for k in draft.state_dict()}, draft)
+    return target, draft
+
+
+def spec_workload(rng, shared, n):
+    """``n`` requests: the shared prefix and a tail of each config's
+    length, cycling SPEC_CONFIGS."""
+    out = []
+    for i in range(n):
+        tail, new = SPEC_CONFIGS[i % len(SPEC_CONFIGS)]
+        out.append((np.concatenate([shared, rng.integers(
+            0, CFG["vocab_size"], tail).astype(np.int32)]), new))
+    return out
+
+
+def spec_serve(torch, eng, reqs, prime, wrappers):
+    """Warm ``eng`` on the workload's prompt lengths, serve ``prime``
+    untimed (captures the suffix buckets, fills the cache), then time
+    ``reqs`` submitted together. Returns the tokens, the wall seconds,
+    the launches and the stats before and after the timed run."""
+    eng.warmup(sorted({len(p) for p, _ in reqs}))
+    for h in [eng.submit(p, n) for p, n in prime]:
+        h.wait(timeout=600)
+    before = eng.stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    outs = [h.wait(timeout=600) for h in [eng.submit(p, n)
+                                          for p, n in reqs]]
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    return outs, wall, counts, before, eng.stats()
+
+
+def top2_gap(torch, model, prompt, toks, j):
+    """The target's top-2 logit gap for generated token ``j`` (a dense
+    f32-cache forward of the prompt and the first ``j`` tokens)."""
+    seq = np.concatenate([prompt, np.asarray(toks[:j], np.int32)])
+    ids = torch.from_numpy(seq)[None].to(model.word_embed.weight.data()
+                                         .device)
+    ck, cv = model.init_cache(1, len(seq), dtype="float32")
+    with torch.no_grad():
+        lg = model.decode_step(ids, ck, cv, 0)[0][0, -1]
+    top = torch.topk(lg, 2).values
+    return (top[0] - top[1]).item()
+
+
+def spec_replay_equals_eager(torch, target, draft, wrappers):
+    """One replay of each of the draft, verify and suffix-prefill
+    programs against one eager call on the same inputs: bitwise equal
+    outputs, pools and launches, the launches as each program's layers
+    imply (draft: K+1 steps of 1 layer; verify and suffix: L layers).
+    Returns the results and the verify lanes' state for the timings."""
+    from mxnet_tpu_torch.gluon.model_zoo.generation import (
+        paged_spec_draft_program, paged_spec_verify_program,
+        paged_suffix_prefill_program)
+
+    dev = target.word_embed.weight.data().device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    # each lane's blocks cover every position verify writes (pos + K):
+    # lanes writing into the shared trash block would race on its slots
+    lengths = [p_ + SPEC_K + 1 for p_ in spec_lane_positions()]
+    toks, pk, pv, table, pos = decode_state(torch, target, lengths, gen)
+    prev, dk, dv, _, _ = decode_state(torch, draft, lengths, gen)
+    pos -= SPEC_K
+    dprog = paged_spec_draft_program(draft, draft_k=SPEC_K)
+    vprog = paged_spec_verify_program(target, draft_k=SPEC_K)
+    d_toks, d_lgs = (t.clone() for t in dprog.eager(
+        prev, toks, dk.clone(), dv.clone(), table, pos, gen)[:2])
+    sb, tail = 32, SPEC_CONFIGS[2][0]
+    sprog = paged_suffix_prefill_program(target, suffix_len=sb,
+                                         block_size=SPEC_BS)
+    suffix = torch.zeros((1, sb), dtype=torch.int32, device=dev)
+    suffix[0, :tail] = torch.randint(0, CFG["vocab_size"], (tail,),
+                                     generator=gen, device=dev)
+    layers = CFG["num_layers"]
+
+    def per_program(n_layers, forwards):
+        return dict({k: 0 for k in wrappers},
+                    layer_norm_fwd=(2 * n_layers + 1) * forwards,
+                    paged_attention=n_layers * forwards,
+                    qkv_project=n_layers * forwards,
+                    out_project=n_layers * forwards)
+
+    out = replays_equal_eager(torch, wrappers, (
+        ("draft", dprog, (dk, dv), per_program(1, SPEC_K + 1),
+         lambda call, k_, v_: call(prev, toks, k_, v_, table, pos, gen)),
+        ("verify", vprog, (pk, pv), per_program(layers, 1),
+         lambda call, k_, v_: call(toks, d_toks, d_lgs, k_, v_, table, pos,
+                                   gen)),
+        (f"suffix bucket {sb}", sprog, (pk, pv), per_program(layers, 1),
+         lambda call, k_, v_: call(suffix, SPEC_PREFIX, tail - 1, k_, v_,
+                                   table[:1], gen))))
+    state = {"draft": (dprog, prev, toks, dk, dv, table, pos, gen),
+             "verify": (vprog, pk, pv)}
+    return out, state
+
+
+def spec_round_times(torch, card, state, profile):
+    """Device and host ms of one speculative round (the draft program,
+    then verify on its outputs), replayed and eager, on the verify
+    lanes' state with every input on the card."""
+    dprog, prev, toks, dk, dv, table, pos, gen = state["draft"]
+    vprog, pk, pv = state["verify"]
+
+    def round_(draft_call, verify_call):
+        d_toks, d_lgs, _, _ = draft_call(prev, toks, dk, dv, table, pos, gen)
+        return verify_call(toks, d_toks, d_lgs, pk, pv, table, pos, gen)
+
+    out = {}
+    for mode, calls in (("replayed", (dprog, vprog)),
+                        ("eager", (dprog.eager, vprog.eager))):
+        dev_ms, host_ms = time_ms(lambda i: round_(*calls), iters=10,
+                                  warmup=2)
+        out[mode] = {"device_ms": dev_ms, "host_ms": host_ms,
+                     "device_busy": dev_ms / host_ms}
+        print(f"spec round on {card} ({SPEC_LANES} lanes, K {SPEC_K}), "
+              f"{mode}: device_ms {dev_ms:.4f} host_ms {host_ms:.4f} "
+              f"(device busy {dev_ms / host_ms:.3f})", flush=True)
+    if profile:
+        out["profiler_device_ms"] = profile_decode(
+            torch, lambda *a: round_(dprog, vprog), (), None,
+            "spec_profile.txt")
+    return out
+
+
+def prefill_vs_suffix_times(torch, target, card, state):
+    """The target's suffix prefill (buckets 16 and 32, after the 448
+    cached tokens) against the full prefill (bucket 512) of the same
+    prompt lengths, replayed, int8 pools, inputs on the card."""
+    from mxnet_tpu_torch.gluon.model_zoo.generation import (
+        paged_prefill_program, paged_suffix_prefill_program)
+
+    _, _, _, _, _, table, _, gen = state["draft"]
+    _, pk, pv = state["verify"]
+    dev = pk.device
+    full = SPEC_BS * (1 << (-(-SPEC_MAX_CONTEXT // SPEC_BS) - 1).bit_length())
+    nb = full // SPEC_BS
+    fprog = paged_prefill_program(target, prefill_len=full,
+                                  block_size=SPEC_BS, kv_cache_dtype="int8")
+    fk, fv = target.init_block_pool(nb + 1, SPEC_BS, dtype="int8")
+    ids = torch.arange(nb, dtype=torch.int64, device=dev)
+    out = {}
+    for tail in (4, 20):
+        sb = 16 if tail <= 16 else 32
+        p = SPEC_PREFIX + tail
+        sprog = paged_suffix_prefill_program(target, suffix_len=sb,
+                                             block_size=SPEC_BS)
+        suffix = torch.randint(0, CFG["vocab_size"], (1, sb), generator=gen,
+                               device=dev, dtype=torch.int32)
+        prompt = torch.randint(0, CFG["vocab_size"], (1, full), generator=gen,
+                               device=dev, dtype=torch.int32)
+        start = torch.tensor([SPEC_PREFIX], dtype=torch.int64, device=dev)
+        s_last = torch.tensor([tail - 1], dtype=torch.int64, device=dev)
+        f_last = torch.tensor([p - 1], dtype=torch.int64, device=dev)
+        s_ms = time_ms(lambda i: sprog(suffix, start, s_last, pk, pv,
+                                       table[:1], gen), iters=10, warmup=2)
+        f_ms = time_ms(lambda i: fprog(prompt, f_last, fk, fv, ids, gen),
+                       iters=10, warmup=2)
+        out[p] = {"suffix_bucket": sb, "suffix_device_ms": s_ms[0],
+                  "suffix_host_ms": s_ms[1], "full_bucket": full,
+                  "full_device_ms": f_ms[0], "full_host_ms": f_ms[1]}
+        print(f"prompt {p} on {card}, replayed: suffix prefill (bucket {sb} "
+              f"after {SPEC_PREFIX} cached) device_ms {s_ms[0]:.4f} host_ms "
+              f"{s_ms[1]:.4f}; full prefill (bucket {full}) device_ms "
+              f"{f_ms[0]:.4f} host_ms {f_ms[1]:.4f} ({f_ms[0] / s_ms[0]:.1f}x)",
+              flush=True)
+    return out
+
+
+def spec_sampling_check(torch, target, draft, prompt):
+    """A sampling spec engine (top-k 50, temperature 0.8) replays draft
+    and verify graphs that draw from its generator: two requests for the
+    same prompt give tokens in the vocabulary that differ, and the
+    generator's offset moved."""
+    from mxnet_tpu_torch.serving.llm import LLMEngine
+
+    with LLMEngine(target, draft_model=draft, draft_k=SPEC_K, greedy=False,
+                   temperature=0.8, top_k=50, seed=3, prefix_cache=True,
+                   max_running=4, block_size=SPEC_BS,
+                   max_context=SPEC_MAX_CONTEXT) as eng:
+        eng.warmup([len(prompt)])
+        state = eng._gen.get_state().clone()
+        outs = [eng.generate(prompt, 16) for _ in range(2)]
+        moved = not torch.equal(state, eng._gen.get_state())
+        st = eng.stats()
+    ok = all(((o >= 0) & (o < CFG["vocab_size"])).all() for o in outs)
+    print(f"sampling spec engine (top-k 50, temperature 0.8) replaying "
+          f"graphs: {outs[0].tolist()} then {outs[1].tolist()}; generator "
+          f"moved {moved}; graphs {st['graphs']}; {st['speculative']}",
+          flush=True)
+    check(ok and moved and not np.array_equal(outs[0], outs[1])
+          and st["graphs"]["replays"] > 0,
+          "sampling through the spec graphs does not draw anew")
+    return {"tokens": [o.tolist() for o in outs], "generator_moved": moved,
+            "graphs": st["graphs"], "speculative": st["speculative"]}
+
+
+def spec_prefix_phase(torch, card, wrappers, profile):
+    """Phase 10: the spec+prefix engine against the plain engine on the
+    same target and workload (SPEC_* above): greedy tokens identical,
+    exact launch counts of the timed run, the prefix hit rate and the
+    cache's blocks; an f32-KV spec+prefix engine against the dense
+    ``generate``; each new program's replay against an eager call; a
+    sampling spec engine; and the times."""
+    from mxnet_tpu_torch.gluon.model_zoo.generation import generate
+    from mxnet_tpu_torch.serving.llm import LLMEngine
+
+    t_phase = time.perf_counter()
+    target, draft = spec_models(torch)
+    rng = np.random.default_rng(SEED + 10)
+    shared = rng.integers(0, CFG["vocab_size"], SPEC_PREFIX).astype(np.int32)
+    reqs = spec_workload(rng, shared, SPEC_REQUESTS)
+    prime = spec_workload(np.random.default_rng(SEED + 11), shared,
+                          SPEC_PRIME)
+    total = sum(n for _, n in reqs)
+    kw = dict(max_running=SPEC_LANES, block_size=SPEC_BS,
+              max_context=SPEC_MAX_CONTEXT)
+    layers, kk = CFG["num_layers"], SPEC_K
+    out = {"config": {"lanes": SPEC_LANES, "draft_k": kk, "block_size":
+                      SPEC_BS, "prefix": SPEC_PREFIX, "configs": SPEC_CONFIGS,
+                      "requests": SPEC_REQUESTS, "alpha": SPEC_ALPHA,
+                      "max_context": SPEC_MAX_CONTEXT, "card": card}}
+
+    def delta(before, after, section, key):
+        return after[section][key] - before[section][key]
+
+    engines = {}
+    for name, extra, primed in (
+            ("plain", {}, prime[:len(SPEC_CONFIGS)]),
+            ("spec_prefix", dict(draft_model=draft, draft_k=kk,
+                                 prefix_cache=True), prime)):
+        with LLMEngine(target, **kw, **extra) as eng:
+            toks, wall, counts, before, after = spec_serve(
+                torch, eng, reqs, primed, wrappers)
+            evictable = eng.evictable_blocks()
+        steps = delta(before, after, "counters", "decode_steps")
+        prefills = delta(before, after, "counters", "prefills")
+        row = {"tok_s": total / wall, "wall_s": wall, "decode_steps": steps,
+               "prefills": prefills, "launches": counts,
+               "prefill_ms": 1e3 * (after["prefill_s"] - before["prefill_s"])
+               / prefills, "round_ms": 1e3 * (after["decode_s"]
+                                              - before["decode_s"]) / steps,
+               "graphs": after["graphs"]}
+        if name == "plain":
+            expected = dict({k: 0 for k in wrappers},
+                            layer_norm_fwd=(2 * layers + 1)
+                            * (prefills + steps),
+                            paged_attention=layers * steps,
+                            qkv_project=layers * steps,
+                            out_project=layers * steps)
+            formula = (f"{prefills} full prefills x (2L+1) K2 + {steps} "
+                       f"decode steps x (L of K4, K5a, K5b and 2L+1 K2)")
+        else:
+            rounds = delta(before, after, "counters", "spec_steps")
+            suffix = delta(before, after, "prefix_cache", "hit_requests")
+            full = prefills - suffix
+            hit = delta(before, after, "prefix_cache", "hit_tokens")
+            miss = delta(before, after, "prefix_cache", "miss_tokens")
+            proposed = delta(before, after, "speculative", "proposed")
+            accepted = delta(before, after, "speculative", "accepted")
+            per = layers * (rounds + suffix) + (kk + 1) * rounds + suffix
+            expected = dict(
+                {k: 0 for k in wrappers},
+                layer_norm_fwd=(2 * layers + 1) * (rounds + suffix + full)
+                + 3 * (kk + 1) * rounds + 3 * (suffix + full),
+                paged_attention=per, qkv_project=per, out_project=per)
+            formula = (f"{rounds} rounds x (verify: L of K4, K5a, K5b, 2L+1 "
+                       f"K2; draft: K+1 of each, 3(K+1) K2) + {suffix} suffix "
+                       f"prefills x (L of each, 2L+1 K2; the draft's 1, 1, 1, "
+                       f"3) + {full} full prefills x (2L+1 K2; the draft's 3)")
+            twenties = sum(1 for p, _ in prime + reqs
+                           if len(p) // SPEC_BS > SPEC_PREFIX // SPEC_BS)
+            pc = after["prefix_cache"]
+            row.update(spec_rounds=rounds, suffix_prefills=suffix,
+                       full_prefills=full, hit_tokens=hit, miss_tokens=miss,
+                       prefix_hit_rate=hit / (hit + miss),
+                       proposed=proposed, accepted=accepted,
+                       acceptance_rate=accepted / proposed,
+                       cached_blocks=pc["cached_blocks"],
+                       tokens_per_round=total / rounds)
+            print(f"spec+prefix engine: acceptance {accepted}/{proposed} = "
+                  f"{accepted / proposed:.4f}, prefix hit rate {hit}/"
+                  f"{hit + miss} = {hit / (hit + miss):.4f}, {suffix} suffix "
+                  f"and {full} full prefills, cached blocks "
+                  f"{pc['cached_blocks']} (expected {SPEC_PREFIX // SPEC_BS} "
+                  f"+ {twenties}), free {after['pool_blocks_free']} of "
+                  f"{after['pool_blocks_total']}, evictable {evictable}",
+                  flush=True)
+            check(hit / (hit + miss) > 0.9 and full == 0,
+                  f"prefix hit rate {hit}/{hit + miss}, {full} full prefills")
+            check(pc["cached_blocks"] == SPEC_PREFIX // SPEC_BS + twenties,
+                  f"cached blocks {pc['cached_blocks']}")
+            check(after["pool_blocks_free"] + pc["cached_blocks"]
+                  == after["pool_blocks_total"]
+                  and evictable == pc["cached_blocks"],
+                  "after the run a block is held by more than the cache")
+        print(f"{name} engine on {card}: {SPEC_REQUESTS} requests, {total} "
+              f"new tokens in {wall:.3f} s = {total / wall:.1f} tok/s; "
+              f"{steps} decode steps or rounds ({row['round_ms']:.3f} host ms "
+              f"each), {prefills} prefills ({row['prefill_ms']:.3f} ms each); "
+              f"launches {counts}, expected {expected}: {formula}",
+              flush=True)
+        check(counts == expected, f"{name}: launch counts {counts} != "
+              f"{expected}")
+        check(after["graphs"]["captures"] == before["graphs"]["captures"],
+              f"{name}: the timed run captured a graph")
+        engines[name] = toks
+        out[name] = row
+    for i, (a_, b_) in enumerate(zip(engines["spec_prefix"],
+                                     engines["plain"])):
+        if not np.array_equal(a_, b_):
+            j = int(np.nonzero(a_[:len(b_)] != b_[:len(a_)])[0][0])
+            gap = top2_gap(torch, target, reqs[i][0], b_, j)
+            print(f"request {i}: spec+prefix token {j} is {a_[j]}, plain "
+                  f"{b_[j]}; the target's top-2 logit gap there (dense, f32 "
+                  f"KV) {gap:.3e}", flush=True)
+            check(False, f"request {i}: greedy tokens differ at {j}")
+    print(f"spec+prefix engine == plain engine: greedy tokens identical on "
+          f"{SPEC_REQUESTS} requests ({total} tokens); tok/s "
+          f"{out['spec_prefix']['tok_s']:.1f} against "
+          f"{out['plain']['tok_s']:.1f} "
+          f"({out['spec_prefix']['tok_s'] / out['plain']['tok_s']:.2f}x)",
+          flush=True)
+
+    with LLMEngine(target, kv_cache_dtype="float32", draft_model=draft,
+                   draft_k=kk, prefix_cache=True, **kw) as eng:
+        paged = [eng.generate(p, n) for p, n in reqs[:3]]
+        hits = eng.stats()["prefix_cache"]["hit_requests"]
+    for (p, n), got in zip(reqs[:3], paged):
+        want = generate(target, p[None], n).cpu().numpy()[0]
+        check(np.array_equal(got, want), f"f32 spec+prefix engine "
+              f"{got.tolist()} != dense generate {want.tolist()}")
+    check(hits == 2, f"f32 engine: {hits} prefix hits")
+    print("spec+prefix engine (f32 KV) == dense generate: greedy tokens "
+          "identical on 3 requests (a full prefill, then 2 suffix prefills)",
+          flush=True)
+    out["replay_vs_eager"], state = spec_replay_equals_eager(
+        torch, target, draft, wrappers)
+    out["sampling"] = spec_sampling_check(torch, target, draft, reqs[0][0])
+    out["round"] = spec_round_times(torch, card, state, profile)
+    out["prefill_vs_suffix"] = prefill_vs_suffix_times(torch, target, card,
+                                                       state)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def write_results(results):
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -3122,6 +3683,15 @@ def main(argv):
     if trials:
         results["trials"] = trial_phase(torch, dev,
                                         trials[0].partition("=")[2])
+    if "--spec" in argv:         # phases 1, 2 at the spec shapes, and 10
+        results["spec_rows"] = spec_shape_checks(torch, dev,
+                                                 launch_floor(torch))
+        results["spec_prefix"] = spec_prefix_phase(
+            torch, card, kernel_wrappers(), "--profile" in argv)
+        write_results(results)
+        print("chip_smoke --spec: phases 1, 2 at the spec shapes and 10 "
+              "passed")
+        return 0
     if "--resnet" in argv:       # phases 1 and 9 only: no result line
         results["resnet"] = resnet_phase(torch, card, kernel_wrappers(),
                                          "--profile" in argv)
@@ -3131,6 +3701,7 @@ def main(argv):
     # -- phase 2: kernels against their plain versions ----------------------
     results["launch_floor_ms"] = launch_floor(torch)
     rows = kernel_checks(torch, dev, results["launch_floor_ms"])
+    rows += spec_shape_checks(torch, dev, results["launch_floor_ms"])
     results["paged_edges"] = paged_edge_checks(torch, dev)
     results["variants"] = variant_checks(torch, dev)
     train_rows, results["train_variants"], results["attention"] = \
@@ -3349,6 +3920,11 @@ def main(argv):
     torch.cuda.empty_cache()
     results["resnet"] = resnet_phase(torch, card, wrappers,
                                      "--profile" in argv)
+
+    # -- phase 10: speculative decoding and the shared-prefix cache ---------
+    torch.cuda.empty_cache()
+    results["spec_prefix"] = spec_prefix_phase(torch, card, wrappers,
+                                               "--profile" in argv)
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

@@ -4,8 +4,13 @@
 :func:`generate` is the dense-cache offline oracle, and
 :func:`paged_decode_program` / :func:`paged_prefill_program` return the
 two programs the serving engine calls (one decode step over the whole
-lane set, one prefill-and-splice per prompt bucket). Sampling draws from
-an explicit ``torch.Generator``.
+lane set, one prefill-and-splice per prompt bucket). With the prefix
+cache, :func:`paged_suffix_prefill_program` prefills only the uncached
+tail of a prompt; with speculative decoding,
+:func:`paged_spec_draft_program` proposes K tokens per lane and
+:func:`paged_spec_verify_program` scores them in one target forward
+(:func:`_spec_accept`). Sampling draws from an explicit
+``torch.Generator``.
 
 Where the reference compiles each program once per shape and memoizes
 it (``_paged_jit``, ``:393``), a program here captures its step on a
@@ -35,7 +40,8 @@ from ...ops.kernels.fused_decode import fused_decode_armed
 from ...ops.nn import kernels_enabled
 
 __all__ = ["generate", "paged_decode_program", "paged_prefill_program",
-           "GraphedProgram"]
+           "paged_suffix_prefill_program", "paged_spec_draft_program",
+           "paged_spec_verify_program", "GraphedProgram"]
 
 _KV_CACHE_DTYPES = (None, "int8", "float32", "bfloat16", "float16")
 
@@ -348,3 +354,217 @@ def paged_prefill_program(model, *, prefill_len, block_size,
         "llm.prefill", body, (0, 1, 4),
         (id(model), pb, bs, cache_dtype, bool(greedy), float(temperature),
          int(top_k)), not greedy, graph_pool)
+
+
+def paged_suffix_prefill_program(model, *, suffix_len, block_size,
+                                 greedy=True, temperature=1.0, top_k=0,
+                                 graph_pool=None):
+    """The shared-prefix suffix prefill for one suffix-length bucket
+    (``generation.py:520`` of the reference).
+
+    Returns a :class:`GraphedProgram` ``run(suffix (1, Sb) i32,
+    start_pos, last_idx, pool_k, pool_v, block_table (1, MB) i32,
+    generator) -> (first_token () i32, pool_k, pool_v)``. The suffix runs
+    as ONE paged step of T = Sb tokens from ``start_pos`` (block-aligned,
+    the end of the cached prefix): its K/V are written through the
+    lane's table and each token attends the pool up to its own position,
+    so the cached prefix blocks feed attention without being computed
+    again. The first token is sampled at ``last_idx``, the last real
+    token's index within the suffix. ``start_pos`` and ``last_idx`` are
+    ints or (1,) int64 tensors, read on the device. Pad tokens past
+    ``last_idx`` write into lane-owned slots that decode overwrites
+    later, or into the trash block where the table points there."""
+    sb, bs = int(suffix_len), int(block_size)
+    if sb % bs:
+        raise MXNetError(
+            f"suffix bucket {sb} must be a multiple of block_size {bs}")
+
+    def body(suffix, start_pos, last_idx, pool_k, pool_v, block_table,
+             generator):
+        with torch.no_grad():
+            pos = start_pos.reshape(1).to(torch.int32)
+            logits, pool_k, pool_v = model.decode_step_paged(
+                suffix, pool_k, pool_v, block_table, pos)
+            last = logits.index_select(1, last_idx)[:, 0]
+            first = _sample(last, generator, greedy, temperature, top_k)[0]
+        return first, pool_k, pool_v
+
+    return GraphedProgram(
+        "llm.prefill_suffix", body, (0, 1, 2, 5),
+        (id(model), sb, bs, bool(greedy), float(temperature), int(top_k)),
+        not greedy, graph_pool)
+
+
+# -- speculative decoding (draft proposes, the target verifies) ------------
+def _policy_probs(logits, greedy, temperature, top_k):
+    """The :func:`_sample` policy as probabilities (..., V) f32: greedy
+    is the argmax one-hot (verify then matches tokens exactly)."""
+    logits = logits.float()
+    if greedy:
+        best = torch.argmax(logits, dim=-1)
+        return torch.nn.functional.one_hot(best, logits.shape[-1]).float()
+    logits = logits / max(temperature, 1e-6)
+    if top_k and top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth,
+                             torch.full_like(logits, float("-inf")), logits)
+    return torch.softmax(logits, dim=-1)
+
+
+def _spec_accept_draws(target_logits, draft_logits, draft_toks, u, gumbel,
+                       greedy, temperature, top_k):
+    """Exact rejection sampling over one verified draft window
+    (``generation.py:599`` of the reference), given its draws.
+
+    ``target_logits`` (R, K+1, V): the target over ``[last, d_0 ..
+    d_{K-1}]``, row ``i`` its distribution after ``i`` draft tokens;
+    ``draft_logits`` (R, K, V); ``draft_toks`` (R, K). ``u`` (R, K) are
+    uniform draws in [0, 1) and ``gumbel`` (R, V) Gumbel noise, the two
+    draws the reference takes (``jax.random.uniform`` and the noise of
+    ``jax.random.categorical``); greedy reads neither. Returns
+    ``(out (R, K+1) i32, n_acc (R,) i32)``: ``out[:n_acc]`` are the
+    accepted draft tokens and ``out[n_acc]`` the correction (or, after
+    K acceptances, the bonus token).
+
+    Greedy accepts while the draft equals the target argmax, so the
+    emitted tokens are the plain greedy stream. Sampled accepts ``d_i``
+    with probability ``min(1, p_i(d_i) / q_i(d_i))`` and draws the
+    correction from ``norm(max(p - q, 0))`` (from ``p_K`` after K
+    acceptances: q's zero-padded row), so the emitted tokens follow
+    plain sampling exactly."""
+    r, kp1, v = target_logits.shape
+    k = kp1 - 1
+    draft_toks = draft_toks.to(torch.int32)
+    if greedy:
+        tgt = torch.argmax(target_logits, dim=-1).to(torch.int32)
+        acc = torch.cumprod((tgt[:, :k] == draft_toks).to(torch.int32), 1)
+        n_acc = acc.sum(1).to(torch.int32)
+        correction = torch.gather(tgt, 1, n_acc.long()[:, None])
+    else:
+        p = _policy_probs(target_logits, greedy, temperature, top_k)
+        q = _policy_probs(draft_logits, greedy, temperature, top_k)
+        idx = draft_toks.long()[:, :, None]
+        p_d = torch.gather(p[:, :k], 2, idx)[..., 0]
+        q_d = torch.gather(q, 2, idx)[..., 0]
+        # u < p/q without the divide (q > 0 wherever the draft sampled)
+        acc = torch.cumprod((u * q_d < p_d).to(torch.int32), 1)
+        n_acc = acc.sum(1).to(torch.int32)
+        qz = torch.cat([q, q.new_zeros((r, 1, v))], dim=1)
+        sel = n_acc.long()[:, None, None].expand(r, 1, v)
+        p_sel = torch.gather(p, 1, sel)[:, 0]
+        q_sel = torch.gather(qz, 1, sel)[:, 0]
+        resid = torch.clamp(p_sel - q_sel, min=0.0)
+        tot = resid.sum(-1, keepdim=True)
+        # p == q exactly: the residual underflows, and a draw from p is
+        # then the right distribution
+        resid = torch.where(tot > 1e-20,
+                            resid / torch.clamp(tot, min=1e-20), p_sel)
+        correction = torch.argmax(
+            gumbel + torch.log(torch.clamp(resid, min=1e-30)),
+            dim=-1).to(torch.int32)[:, None]
+    cols = torch.arange(kp1, device=target_logits.device)[None]
+    padded = torch.cat([draft_toks, draft_toks.new_zeros((r, 1))], dim=1)
+    out = torch.where(cols < n_acc[:, None], padded,
+                      correction.expand(r, kp1))
+    return out.to(torch.int32), n_acc
+
+
+def _spec_accept(target_logits, draft_logits, draft_toks, generator,
+                 greedy, temperature, top_k):
+    """:func:`_spec_accept_draws` with its draws taken from
+    ``generator``: ``u`` uniform in [0, 1), float64 as the reference
+    draws it (it runs with 64-bit types on), and float32 Gumbel noise
+    ``-log(-log(U))``, U uniform in [tiny, 1), as ``jax.random.gumbel``
+    draws it. Greedy draws nothing."""
+    u = gumbel = None
+    if not greedy:
+        r, kp1, v = target_logits.shape
+        dev = target_logits.device
+        u = torch.rand((r, kp1 - 1), generator=generator, device=dev,
+                       dtype=torch.float64)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp(torch.rand(
+            (r, v), generator=generator, device=dev), min=tiny)))
+    return _spec_accept_draws(target_logits, draft_logits, draft_toks, u,
+                              gumbel, greedy, temperature, top_k)
+
+
+def paged_spec_draft_program(model, *, draft_k, greedy=True,
+                             temperature=1.0, top_k=0, graph_pool=None):
+    """The draft's proposal (``generation.py:664`` of the reference): K
+    single-token steps of the draft model in ONE program.
+
+    Returns a :class:`GraphedProgram` ``run(prev_tok (R, 1) i32,
+    last_tok (R, 1) i32, pool_k, pool_v, block_table (R, MB) i32,
+    positions (R,) i32, generator) -> (draft_toks (R, K) i32,
+    draft_logits (R, K, V) f32, pool_k, pool_v)``. ``positions[r]`` is
+    where ``last_tok`` is written (the lane's length); ``prev_tok``, the
+    token at ``positions - 1``, is forwarded again first, to fill the
+    draft pool's row a fully accepted round leaves unwritten (rewriting
+    a row that is there already). The draft pools only move the
+    acceptance rate: the target verifies every proposal."""
+    kk = int(draft_k)
+    if kk < 1:
+        raise MXNetError(f"draft_k must be >= 1, got {kk}")
+
+    def body(prev_tok, last_tok, pool_k, pool_v, block_table, positions,
+             generator):
+        with torch.no_grad():
+            pos = positions.to(torch.int32)
+            _, pool_k, pool_v = model.decode_step_paged(
+                prev_tok, pool_k, pool_v, block_table,
+                torch.clamp(pos - 1, min=0))
+            tok = last_tok
+            toks, lgs = [], []
+            for i in range(kk):
+                lg, pool_k, pool_v = model.decode_step_paged(
+                    tok, pool_k, pool_v, block_table, pos + i)
+                lg = lg[:, -1].float()
+                nxt = _sample(lg, generator, greedy, temperature, top_k)
+                toks.append(nxt)
+                lgs.append(lg)
+                tok = nxt[:, None]
+        return torch.stack(toks, 1), torch.stack(lgs, 1), pool_k, pool_v
+
+    return GraphedProgram(
+        "llm.draft", body, (0, 1, 4, 5),
+        (id(model), kk, bool(greedy), float(temperature), int(top_k)),
+        not greedy, graph_pool)
+
+
+def paged_spec_verify_program(model, *, draft_k, greedy=True,
+                              temperature=1.0, top_k=0, graph_pool=None):
+    """The target's verification (``generation.py:729`` of the
+    reference): ``[last_tok, d_0 .. d_{K-1}]`` in ONE (R, K+1) paged
+    forward, then :func:`_spec_accept`.
+
+    Returns a :class:`GraphedProgram` ``run(last_tok (R, 1) i32,
+    draft_toks (R, K) i32, draft_logits (R, K, V) f32, pool_k, pool_v,
+    block_table (R, MB) i32, positions (R,) i32, generator) -> (out
+    (R, K+1) i32, n_acc (R,) i32, pool_k, pool_v)``. The draft's tokens
+    and logits are used where they lie (on the card, the draft graph's
+    outputs: their addresses are part of the key). The forward writes
+    K+1 rows per lane at ``positions + [0 .. K]``; rows past the
+    accepted ones are masked by length until the next round writes them
+    again, so a rollback is just not advancing ``positions``."""
+    kk = int(draft_k)
+    if kk < 1:
+        raise MXNetError(f"draft_k must be >= 1, got {kk}")
+
+    def body(last_tok, draft_toks, draft_logits, pool_k, pool_v,
+             block_table, positions, generator):
+        with torch.no_grad():
+            tokens = torch.cat([last_tok.to(torch.int32),
+                                draft_toks.to(torch.int32)], dim=1)
+            logits, pool_k, pool_v = model.decode_step_paged(
+                tokens, pool_k, pool_v, block_table,
+                positions.to(torch.int32))
+            out, n_acc = _spec_accept(logits.float(), draft_logits,
+                                      draft_toks, generator, greedy,
+                                      temperature, top_k)
+        return out, n_acc, pool_k, pool_v
+
+    return GraphedProgram(
+        "llm.verify", body, (0, 5, 6),
+        (id(model), kk, bool(greedy), float(temperature), int(top_k)),
+        not greedy, graph_pool)

@@ -20,7 +20,7 @@ import torch
 
 from ...autograd import is_training
 from ...ops.nn import (attend, kv_cache_dequantize, kv_cache_quantize,
-                       paged_attention, paged_write)
+                       paged_attention, paged_attention_multi, paged_write)
 from ..block import HybridBlock
 from .basic_layers import Dense, Dropout
 from .norm_layers import LayerNorm
@@ -106,6 +106,9 @@ class MultiHeadAttention(HybridBlock):
         written in place into the pools (NB, H, bs, D') of THIS layer at
         ``block_table[r, p // bs]`` slot ``p % bs``, then attended through
         the table as R*T virtual lanes whose lengths are the causal mask.
+        T = 1 is the decode step; T > 1 serves speculative verify (K+1
+        tokens per lane) and suffix prefill, through
+        :func:`~..ops.nn.paged_attention_multi`.
 
         When :func:`~..ops.kernels.fused_decode.fused_decode_armed` arms
         (CUDA tensors by default), the QKV projection with the KV store
@@ -133,7 +136,11 @@ class MultiHeadAttention(HybridBlock):
             k_store, v_store = k.to(pool_k.dtype), v.to(pool_v.dtype)
         bt, lengths = paged_write(pool_k, pool_v, k_store, v_store,
                                   block_table, positions)
-        out = paged_attention(q, pool_k, pool_v, bt, lengths)
+        if t == 1:                      # the decode step
+            out = paged_attention(q, pool_k, pool_v, bt, lengths)
+        else:                           # speculative verify, suffix prefill
+            out = paged_attention_multi(q.reshape(r, t, heads, d), pool_k,
+                                        pool_v, block_table, positions)
         return self.out_proj(out.reshape(r, t, units)), pool_k, pool_v
 
     def _forward_step_paged_fused(self, x, pool_k, pool_v, block_table,

@@ -11,7 +11,8 @@ window of ``ceil_mode``, an average's divisor, the running variance),
 the reference's arithmetic is written out in torch.
 
 Kernel dispatch: :func:`layer_norm`, :func:`rms_norm`, :func:`attend`,
-:func:`softmax_cross_entropy` and :func:`paged_attention` hand their
+:func:`softmax_cross_entropy`, :func:`paged_attention` and
+:func:`paged_attention_multi` hand their
 tensors to the hand-written kernels' wrappers (:mod:`.kernels`), and a
 wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
 PyTorch version for a CPU tensor. Inside a :class:`no_kernels` scope
@@ -34,7 +35,8 @@ __all__ = ["fully_connected", "activation", "embedding", "convolution",
            "dropout_generator", "seed", "using_generator", "attend",
            "softmax", "log_softmax", "pick", "softmax_cross_entropy",
            "kv_cache_quantize", "kv_cache_dequantize", "paged_write",
-           "paged_attention", "no_kernels", "kernels_enabled"]
+           "paged_attention", "paged_attention_multi", "no_kernels",
+           "kernels_enabled"]
 
 
 def fully_connected(x, weight, bias=None, num_hidden=None, flatten=True,
@@ -627,3 +629,56 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths,
         return paged_attention_kernel(q, k_pool, v_pool, block_table,
                                       lengths)
     return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
+
+
+def paged_attention_multi(q, k_pool, v_pool, block_table, positions,
+                          use_kernel=None):
+    """Multi-token paged attention (``mxnet_tpu/ops/nn.py:1087``): ``q``
+    is (R, T, H, D), lane ``r``'s query ``t`` at absolute position
+    ``positions[r] + t``, attending positions ``<= positions[r] + t``
+    (the length mask is the causal mask). Speculative verify (T = K+1)
+    and suffix prefill (T = the suffix bucket) run it.
+
+    ``use_kernel=None`` takes the K4 kernel for CUDA tensors unless a
+    :class:`no_kernels` scope is active: R*T virtual lanes, each lane's
+    table row repeated per token and lengths ``positions + t + 1``, as
+    the reference's TPU route (``:1117-1125``). Otherwise each lane's
+    blocks are gathered once and all T queries attend that dense view
+    (``:1126-``), with the row arithmetic of :func:`paged_attention`'s
+    plain path. Returns (R, T, H, D) in the pool's dtype (float pools)
+    or ``q``'s dtype (int8 pools)."""
+    r, t, h, d = q.shape
+    bs = k_pool.shape[2]
+    mb = block_table.shape[1]
+    abs_pos = (positions.long()[:, None]
+               + torch.arange(t, device=positions.device)[None])  # (R, T)
+    if use_kernel is None:
+        use_kernel = kernels_enabled() and q.is_cuda
+    if use_kernel:
+        from .kernels.paged_attention import paged_attention_kernel
+
+        out = paged_attention_kernel(
+            q.reshape(r * t, h, d).contiguous(), k_pool, v_pool,
+            block_table.repeat_interleave(t, dim=0).contiguous(),
+            (abs_pos + 1).reshape(-1).to(torch.int32))
+        return out.reshape(r, t, h, d)
+    bt = block_table.long()
+    keys = k_pool[bt]                   # (R, MB, H, bs, D') — once
+    vals = v_pool[bt]
+
+    def flat(c):                        # -> (R, H, MB*bs, D')
+        return c.permute(0, 2, 1, 3, 4).reshape(r, h, mb * bs, c.shape[-1])
+
+    keys, vals = flat(keys), flat(vals)
+    if k_pool.dtype == torch.int8:
+        keys = kv_cache_dequantize(keys, q.dtype)
+        vals = kv_cache_dequantize(vals, q.dtype)
+    ct = torch.promote_types(q.dtype, keys.dtype)
+    scores = torch.einsum("rthd,rhld->rthl", q.to(ct), keys.to(ct)).float()
+    scores = scores / math.sqrt(d)
+    live = (torch.arange(mb * bs, device=q.device)[None, None, :]
+            < (abs_pos + 1)[:, :, None])
+    scores = torch.where(live[:, :, None, :], scores,
+                         torch.full_like(scores, float("-inf")))
+    attn = torch.softmax(scores, dim=-1).to(vals.dtype)
+    return torch.einsum("rthl,rhld->rthd", attn, vals)

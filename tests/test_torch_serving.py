@@ -227,7 +227,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module of the port or chip_smoke.py names jax or mxnet_tpu; with
     both blocked, every module of the port imports, a tiny CPU engine
-    serves, the same model takes a train step through the loss and the
+    serves, plain and with a draft model and the prefix cache (the chain
+    hashes, the suffix-prefill, draft and verify programs), the same
+    model takes a train step through the loss and the
     Trainer, the front door (mx.np, a deferred RMSNorm/Dense stack,
     rtc.TorchModule) runs, and a tiny resnet18_v1(thumbnail=True) takes
     a train step through the Trainer."""
@@ -256,6 +258,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " block_size=4) as eng:\n"
         "    out = eng.generate(np.array([1, 2, 3]), 5)\n"
         "assert out.shape == (5,) and (out >= 0).all() and (out < 41).all()\n"
+        "from mxnet_tpu_torch.serving.kv_hash import chain_hashes\n"
+        "from mxnet_tpu_torch.gluon.model_zoo.generation import (\n"
+        "    paged_spec_draft_program, paged_spec_verify_program,\n"
+        "    paged_suffix_prefill_program)\n"
+        "draft = gpt_like(device='cpu', vocab_size=41, units=32,"
+        " hidden_size=64, num_layers=1, num_heads=4, max_length=64)\n"
+        "with LLMEngine(net, device='cpu', max_running=2, block_size=4,"
+        " draft_model=draft, draft_k=2, prefix_cache=True) as eng:\n"
+        "    for p in ([1, 2, 3, 4, 5, 6, 7, 8, 9], [1, 2, 3, 4, 5, 6, 7, 8]):\n"
+        "        spec = eng.generate(np.array(p), 5)\n"
+        "        assert spec.shape == (5,)\n"
+        "    st = eng.stats()\n"
+        "assert st['prefix_cache']['hit_requests'] == 1\n"
+        "assert st['speculative']['proposed'] > 0\n"
+        "assert len(chain_hashes(np.arange(9), 4)) == 2\n"
         "from mxnet_tpu_torch import autograd\n"
         "from mxnet_tpu_torch.gluon import Trainer\n"
         "from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss\n"
