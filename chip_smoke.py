@@ -10,6 +10,7 @@ NVIDIA H100.
     python3 chip_smoke.py --resnet     # phases 1 and 9 only (no result)
     python3 chip_smoke.py --spec       # phases 1, 2 at phase 10's shapes,
                                        # and 10 (no result)
+    python3 chip_smoke.py --front      # phases 1 and 11 only (no result)
     python3 chip_smoke.py --trials     # also, after phase 1, trial builds
                                        # of K4's span, K1 forward's
                                        # tiling, K5a's cluster size,
@@ -156,13 +157,36 @@ Phases (each asserts; any failure exits non-zero before the result line):
    bitwise (:func:`spec_replay_equals_eager`); a sampling spec engine
    draws anew. It prints both engines' tok/s, the acceptance and hit
    rates, a spec round's device and host ms replayed and eager, and the
-   suffix prefill against the full prefill of the same prompt lengths.
+   suffix prefill against the full prefill of the same prompt lengths,
+   and the smallest top-2 logit gap of the target along both engines'
+   greedy paths (dense f32-KV forwards of each prompt and its tokens).
+11. The training front door (:func:`front_phase`), under ``default``:
+   ``example/gluon/image_classification.py``'s loop on phase 9's
+   ResNet-50 (B 32) with ``Trainer(net.collect_params(), "nag")`` under
+   a ``MultiFactorScheduler`` with warmup, ``SoftmaxCrossEntropyLoss``
+   and a ``CompositeEvalMetric`` of Accuracy, TopKAccuracy(5) and Loss
+   for 6 steps: each step's rate equals the schedule's closed form, K3
+   once a step and no other kernel of the port, a falling loss, metrics
+   equal to the counts taken on the host, img/s and step ms; after step
+   3 a ``save_states``/``load_states`` round trip into a fresh Trainer
+   gives bitwise-equal states, and both Trainers' updates from one set
+   of gradients bitwise-equal weights. The same net after
+   ``net.cast("bfloat16")`` takes 3 steps of ``SGD(multi_precision=
+   True)``: float32 masters, each weight its master rounded bitwise, K3
+   in bfloat16, a falling loss. Phase 7's gpt_like takes 3 steps of LAMB
+   under a ``CosineScheduler`` with the ``Perplexity`` metric: phase 7's
+   launches of K1 forward, K1c, K1d, K2 and K3 per step, a falling loss,
+   the perplexity equal to exp of the mean loss. Every registered
+   optimizer takes one update of gpt_like's (32000, 768) embedding and a
+   (768,) bias on the card, held against the port on the CPU, and is
+   timed.
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
 ``chiprun_out/chip_smoke.json``.
 """
 import json
+import math
 import os
 import re
 import subprocess
@@ -278,7 +302,10 @@ def time_ms(fn, n_inputs=1, iters=100, warmup=5):
     the stream until the host has enqueued every call, so the events time
     the card's work and not the Python wrapper's; when the host could not
     enqueue them all within the spin (a full launch queue), the run is
-    repeated with half as many calls. ``host_ms`` is the host's time per
+    repeated with half as many calls, and when not even one call fits,
+    the whole is tried again with a spin twice as long (a host slowed by
+    its neighbours enqueues a call in more than twice the time the first
+    loop measured). ``host_ms`` is the host's time per
     call in a loop that ends in a synchronise. ``fn(i)`` cycles through
     ``n_inputs`` input sets, so that operands the main path finds cold in
     L2 (one weight set per layer) are cold here too."""
@@ -294,21 +321,23 @@ def time_ms(fn, n_inputs=1, iters=100, warmup=5):
     host_ms = 1e3 * (time.perf_counter() - t0) / iters
     spin, start, end = (torch.cuda.Event(enable_timing=True)
                         for _ in range(3))
-    while True:
-        spin.record()
-        torch.cuda._sleep(int((2e-3 * iters * host_ms + 1e-3)
-                              * SPIN_CYCLES_S))
-        start.record()
-        t0 = time.perf_counter()
-        for i in range(iters):
-            fn(i % n_inputs)
-        enqueue_ms = 1e3 * (time.perf_counter() - t0)
-        end.record()
-        end.synchronize()
-        if enqueue_ms < spin.elapsed_time(start):
-            return start.elapsed_time(end) / iters, host_ms
-        check(iters > 1, "time_ms: one call outlasts the spin")
-        iters //= 2
+    for factor in (2e-3, 4e-3, 8e-3):
+        n = iters
+        while n >= 1:
+            spin.record()
+            torch.cuda._sleep(int((factor * n * host_ms + 1e-3)
+                                  * SPIN_CYCLES_S))
+            start.record()
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i % n_inputs)
+            enqueue_ms = 1e3 * (time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
+            if enqueue_ms < spin.elapsed_time(start):
+                return start.elapsed_time(end) / n, host_ms
+            n //= 2
+    check(False, "time_ms: one call outlasts a spin of 8x its host time")
 
 
 def bound_ms(nbytes, flops):
@@ -756,7 +785,9 @@ def kernel_checks(torch, dev, floor_ms):
         lambda i: kfd.fused_qkv_project(x, wq[i], bq[i], heads=heads,
                                         store_dtype=torch.int8),
         lambda i: kfd.qkv_project_plain(x, wq[i], bq[i], heads, torch.int8),
-        None, 4 * (3 * u * u + 3 * u + 2 * n * u) + 2 * n * heads * (d + 4),
+        # the Q, K and V product alone (no int8 store), as at phase 10's N
+        lambda i: F.linear(x, wq[i], bq[i]),
+        4 * (3 * u * u + 3 * u + 2 * n * u) + 2 * n * heads * (d + 4),
         2 * n * 3 * u * u, n_inputs=n_sets))
     rows[-1].update(cluster=cl["float32"], launch_floor_ms=floor_ms,
                     two_runs_bitwise=True)
@@ -2997,17 +3028,18 @@ def spec_serve(torch, eng, reqs, prime, wrappers):
     return outs, wall, counts, before, eng.stats()
 
 
-def top2_gap(torch, model, prompt, toks, j):
-    """The target's top-2 logit gap for generated token ``j`` (a dense
-    f32-cache forward of the prompt and the first ``j`` tokens)."""
-    seq = np.concatenate([prompt, np.asarray(toks[:j], np.int32)])
+def path_top2_gaps(torch, model, prompt, toks):
+    """The target's top-2 logit gap at each token of one greedy path: a
+    dense f32-cache forward of the prompt and the tokens, row ``j`` the
+    logits that chose token ``j``."""
+    seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])
     ids = torch.from_numpy(seq)[None].to(model.word_embed.weight.data()
                                          .device)
     ck, cv = model.init_cache(1, len(seq), dtype="float32")
     with torch.no_grad():
-        lg = model.decode_step(ids, ck, cv, 0)[0][0, -1]
-    top = torch.topk(lg, 2).values
-    return (top[0] - top[1]).item()
+        lg = model.decode_step(ids, ck, cv, 0)[0][0, len(prompt) - 1:]
+    top = torch.topk(lg, 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
 
 
 def spec_replay_equals_eager(torch, target, draft, wrappers):
@@ -3273,14 +3305,24 @@ def spec_prefix_phase(torch, card, wrappers, profile):
               f"{name}: the timed run captured a graph")
         engines[name] = toks
         out[name] = row
+    gaps = {name: [path_top2_gaps(torch, target, p, t)
+                   for (p, _), t in zip(reqs, toks)]
+            for name, toks in engines.items()}
+    least = min((float(g.min()), name, i, int(g.argmin()))
+                for name, per in gaps.items() for i, g in enumerate(per))
+    out["top2_gap"] = {"min": least[0], "engine": least[1],
+                       "request": least[2], "token": least[3]}
+    print(f"smallest top-2 logit gap of the target along both engines' "
+          f"greedy paths ({sum(len(g) for g in gaps['plain'])} tokens each; "
+          f"dense f32-KV forwards): {least[0]:.4e} ({least[1]} engine, "
+          f"request {least[2]}, token {least[3]})", flush=True)
     for i, (a_, b_) in enumerate(zip(engines["spec_prefix"],
                                      engines["plain"])):
         if not np.array_equal(a_, b_):
             j = int(np.nonzero(a_[:len(b_)] != b_[:len(a_)])[0][0])
-            gap = top2_gap(torch, target, reqs[i][0], b_, j)
             print(f"request {i}: spec+prefix token {j} is {a_[j]}, plain "
                   f"{b_[j]}; the target's top-2 logit gap there (dense, f32 "
-                  f"KV) {gap:.3e}", flush=True)
+                  f"KV) {gaps['plain'][i][j]:.3e}", flush=True)
             check(False, f"request {i}: greedy tokens differ at {j}")
     print(f"spec+prefix engine == plain engine: greedy tokens identical on "
           f"{SPEC_REQUESTS} requests ({total} tokens); tok/s "
@@ -3309,6 +3351,447 @@ def spec_prefix_phase(torch, card, wrappers, profile):
                                                        state)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 10 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 11: the training front door ----------------------------------------
+# example/gluon/image_classification.py:113-131's loop on phase 9's
+# ResNet-50 (B 32, 224x224, seed 0, default policy): NAG (lr 0.05,
+# momentum 0.9, wd 1e-4) under MultiFactorScheduler(step=[3, 5], factor
+# 0.1, warmup_steps=2), SoftmaxCrossEntropyLoss and a composite of
+# Accuracy, TopKAccuracy(5) and Loss, for FRONT_STEPS steps; the states
+# round trip after step 3; the same net in bfloat16 with
+# SGD(multi_precision=True); phase 7's gpt_like with LAMB under
+# CosineScheduler(max_update=3, warmup_steps=1) and Perplexity; and one
+# update of every registered optimizer at gpt_like's embedding width
+FRONT_STEPS, FRONT_MP_STEPS, FRONT_LM_STEPS = 6, 3, 3
+FRONT_SCHEDULE = dict(step=[3, 5], factor=0.1, warmup_steps=2)
+FRONT_NAG = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+FRONT_LAMB = {"learning_rate": 0.01, "wd": 0.01}
+# One update on the card against the same update of the port on the
+# CPU, as max|card - cpu| over the tensor's largest magnitude, for the
+# weights and every state tensor: the elementwise chains are the same
+# float32 operations on both, each rounded once, though a library's
+# sqrt, division or power may land an ulp apart (up to 4.6e-7 of the
+# magnitude measured on one H100); LARS and LAMB sum their norms in
+# float64 on both. 1e-5 leaves 20x.
+FRONT_OPT_TOL = 1e-5
+# every registered optimizer with its defaults, and the variants of the
+# CPU tests (Adam without bias correction, centered RMSProp)
+FRONT_OPTIMIZERS = [
+    ("sgd", {"momentum": 0.9}), ("nag", {}), ("signum", {}), ("sgld", {}),
+    ("dcasgd", {"momentum": 0.9}), ("lars", {}), ("adam", {}),
+    ("adam", {"correct_bias": False}), ("adamw", {}), ("adamax", {}),
+    ("nadam", {}), ("adagrad", {}), ("adadelta", {}), ("rmsprop", {}),
+    ("rmsprop", {"centered": True, "clip_weights": 0.5}), ("ftrl", {}),
+    ("ftml", {}), ("lamb", {}), ("groupadagrad", {})]
+
+
+def front_resnet_lr(u):
+    """The rate of MultiFactorScheduler(**FRONT_SCHEDULE) at update ``u``
+    inside an optimizer with learning_rate 0.05, in closed form: a linear
+    warmup from 0 to the scheduler's own base_lr (0.01, which the
+    optimizer's learning_rate does not replace), then 0.05 times 0.1 for
+    each step passed."""
+    if u < FRONT_SCHEDULE["warmup_steps"]:
+        return 0.01 * u / FRONT_SCHEDULE["warmup_steps"]
+    return 0.05 * FRONT_SCHEDULE["factor"] ** sum(
+        u > s for s in FRONT_SCHEDULE["step"])
+
+
+def front_lm_lr(u):
+    """CosineScheduler(max_update=3, warmup_steps=1)'s rate at ``u``: half
+    a cosine from its own base_lr (0.01) to 0 over updates 1..3."""
+    if u < 1:
+        return 0.0
+    return 0.01 * (1 + math.cos(math.pi * (u - 1) / 2)) / 2
+
+
+def close(a, b, rel=1e-12):
+    return abs(a - b) <= rel * max(abs(a), abs(b))
+
+
+def states_equal(torch, a, b):
+    """Two state trees (tuples of tensors) equal bitwise."""
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(states_equal(torch, x, y) for x, y in zip(a, b)))
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def event_span(torch, fn):
+    """Run ``fn()`` (a Trainer's update) between two CUDA events and return
+    their elapsed ms: the card's time from the end of the work enqueued
+    before ``fn`` to the end of ``fn``'s, its idle waits for the launches
+    included, so the share of the step the update adds."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def front_resnet(torch, card, wrappers):
+    """Phase 11's ResNet-50 loop (FRONT_* above) under the default policy:
+    each step's rate equals :func:`front_resnet_lr`, K3 launches once a
+    step and no other kernel of the port, the loss falls, and the
+    metrics equal the counts taken on the host. After step 3 the states
+    go through a .states file into a fresh Trainer (bitwise equal), and
+    from step 4's gradients both Trainers' updates give bitwise-equal
+    weights. Then ``net.cast("bfloat16")`` and FRONT_MP_STEPS steps of
+    SGD(multi_precision=True): every master float32 and every weight its
+    master rounded to bfloat16 bitwise, K3 in bfloat16, the loss falling.
+    """
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon import Trainer, metric
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.optimizer.lr_scheduler import MultiFactorScheduler
+
+    dev = mx.context.resolve_device(None)
+    net = vision.get_model("resnet50_v1", classes=RN_CLASSES)
+    net.initialize()
+    rng = np.random.default_rng(SEED + 9)
+    x = torch.from_numpy(rng.random((RN_B, 3, RN_HW, RN_HW),
+                                    dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, RN_CLASSES, RN_B)).to(dev)
+    with autograd.pause():
+        net(x[:1])
+    from_jax_params(resnet_weights(net, SEED), net)
+    params = net.collect_params()
+    live = [p.data() for p in params.values() if p.grad_req != "null"]
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def trainer_nag():
+        return Trainer(params, "nag", dict(
+            FRONT_NAG, lr_scheduler=MultiFactorScheduler(**FRONT_SCHEDULE)))
+
+    trainer = trainer_nag()
+    comp = metric.CompositeEvalMetric([metric.Accuracy(),
+                                       metric.TopKAccuracy(5),
+                                       metric.Loss()])
+    host = {"correct": 0, "top5": 0, "n": 0, "loss_sum": 0.0, "loss_n": 0}
+    losses, rates, host_ms, update_ms, metric_ms = [], [], [], [], []
+    out = {"card": card, "batch": RN_B, "policy": "default"}
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "mxnet_tpu_torch", "_build", "chip_smoke_states")
+    for w in wrappers.values():
+        w.launches = 0
+    with matmul_precision_scope("default"):
+        for k in range(1, FRONT_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with autograd.record():
+                logits = net(x)
+                loss = loss_fn(logits, y)
+            autograd.backward(loss)
+            if k == 4:        # the round trip takes this step's update
+                out["states_round_trip"] = front_states_round_trip(
+                    torch, live, trainer, trainer_nag, tmp)
+            else:
+                upd = event_span(torch, lambda: trainer.step(RN_B))
+            torch.cuda.synchronize()
+            if k not in (1, 4):
+                host_ms.append(1e3 * (time.perf_counter() - t0))
+                update_ms.append(upd)
+            rates.append(trainer.learning_rate)
+            check(close(rates[-1], front_resnet_lr(k)),
+                  f"step {k}: lr {rates[-1]} != {front_resnet_lr(k)}")
+            logits, loss = logits.detach(), loss.detach()
+            t0 = time.perf_counter()
+            comp.metrics[0].update([y], [logits])
+            comp.metrics[1].update([y], [logits])
+            comp.metrics[2].update(None, [loss])
+            metric_ms.append(1e3 * (time.perf_counter() - t0))
+            lg, lab = logits.cpu().numpy(), y.cpu().numpy()
+            ls = loss.cpu().numpy().astype(np.float64)
+            host["correct"] += int((lg.argmax(-1) == lab).sum())
+            top5 = np.argsort(-lg, axis=-1, kind="stable")[:, :5]
+            host["top5"] += int((top5 == lab[:, None]).any(-1).sum())
+            host["n"] += RN_B
+            host["loss_sum"] += float(ls.sum())
+            host["loss_n"] += ls.size
+            losses.append(float(ls.mean()))
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers}, cross_entropy_lse=FRONT_STEPS)
+    check(counts == want, f"front ResNet launches {counts} != {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"front ResNet loss did not fall: {losses}")
+    names, values = comp.get()
+    want_vals = [host["correct"] / host["n"], host["top5"] / host["n"],
+                 host["loss_sum"] / host["loss_n"]]
+    check(values[0] == want_vals[0] and values[1] == want_vals[1]
+          and close(values[2], want_vals[2], 1e-9),
+          f"metrics {dict(zip(names, values))} != host {want_vals}")
+    step_ms = float(np.mean(host_ms))
+    out.update(losses=losses, rates=rates, host_ms=host_ms, step_ms=step_ms,
+               img_s=RN_B / step_ms * 1e3, update_ms=update_ms,
+               metric_ms=metric_ms,
+               metrics=dict(zip(names, values)), launches=counts)
+    print(f"front door, resnet50_v1 on {card}, default policy: NAG lr 0.05 "
+          f"momentum 0.9 wd 1e-4, MultiFactorScheduler {FRONT_SCHEDULE}; "
+          f"rates {rates} (closed form); loss {[round(v, 5) for v in losses]};"
+          f" step ms (host wall to a synchronise; steps 2, 3, 5 and 6: "
+          f"step 1 holds cuDNN's first-call set-up, step 4 the round trip) "
+          f"{[round(v, 3) for v in host_ms]}, {out['img_s']:.1f} "
+          f"img/s, of which Trainer.step (CUDA events around it) "
+          f"{[round(v, 3) for v in update_ms]} ms; metrics {dict(zip(names, values))} equal the host's "
+          f"counts, three updates {[round(v, 3) for v in metric_ms]} ms "
+          f"(one transfer each); launches {counts}", flush=True)
+
+    # multi_precision in bfloat16 ----------------------------------------
+    net.cast("bfloat16")
+    xb = x.bfloat16()
+    mp = Trainer(params, "sgd", {"learning_rate": 0.05, "momentum": 0.9,
+                                 "multi_precision": True})
+    mp_losses, mp_ms, mp_update_ms = [], [], []
+    for w in wrappers.values():
+        w.launches = 0
+    with matmul_precision_scope("default"):
+        for _ in range(FRONT_MP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with autograd.record():
+                logits = net(xb)
+                loss = loss_fn(logits, y)
+            autograd.backward(loss)
+            mp_update_ms.append(event_span(torch, lambda: mp.step(RN_B)))
+            torch.cuda.synchronize()
+            mp_ms.append(1e3 * (time.perf_counter() - t0))
+            check(logits.dtype == torch.bfloat16,
+                  f"bfloat16 net gave {logits.dtype} logits")
+            mp_losses.append(loss.float().mean().item())
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers}, cross_entropy_lse=FRONT_MP_STEPS)
+    check(counts == want, f"bfloat16 launches {counts} != {want}")
+    check(all(np.isfinite(mp_losses)) and mp_losses[-1] < mp_losses[0],
+          f"bfloat16 loss did not fall: {mp_losses}")
+    n_master = 0
+    live_idx = [i for i, p in enumerate(params.values())
+                if p.grad_req != "null"]
+    for i, w in zip(live_idx, live):
+        master, inner = mp._states[i]
+        check(w.dtype == torch.bfloat16 and master.dtype == torch.float32
+              and isinstance(inner, tuple)
+              and inner[0].dtype == torch.float32,
+              f"parameter {i}: weight {w.dtype}, master {master.dtype}")
+        check(torch.equal(w.detach(), master.bfloat16()),
+              f"parameter {i}: weight is not its master rounded")
+        check(master.data_ptr() != w.data_ptr(),
+              f"parameter {i}: the master shares the weight's storage")
+        n_master += 1
+    out["multi_precision"] = {"losses": mp_losses, "host_ms": mp_ms,
+                              "update_ms": mp_update_ms,
+                              "masters": n_master, "launches": counts}
+    print(f"front door, resnet50_v1 bfloat16 with SGD(multi_precision=True)"
+          f" lr 0.05 momentum 0.9: loss {[round(v, 5) for v in mp_losses]}, "
+          f"step ms {[round(v, 3) for v in mp_ms]} (Trainer.step "
+          f"{[round(v, 3) for v in mp_update_ms]}); all {n_master} masters "
+          f"float32 and every weight its master rounded to bfloat16 "
+          f"bitwise; K3 in bfloat16, launches {counts}", flush=True)
+    return out
+
+
+def front_states_round_trip(torch, live, trainer, make, tmp):
+    """After step 3: ``save_states`` and ``load_states`` into a fresh
+    Trainer (``make()``) give bitwise-equal states and counts; from the
+    gradients the caller's backward left, the fresh Trainer's update and
+    then (weights and gradients restored) ``trainer``'s, which is step 4,
+    give bitwise-equal weights."""
+    import shutil
+
+    os.makedirs(tmp, exist_ok=True)
+    fname = os.path.join(tmp, "resnet50.states")
+    try:
+        trainer.save_states(fname)
+        size = os.path.getsize(fname)
+        fresh = make()
+        fresh.load_states(fname)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = trainer.optimizer, fresh.optimizer
+    check(a.num_update == b.num_update == 3
+          and a._index_update_count == b._index_update_count,
+          f"counts: {a.num_update} {b.num_update}")
+    check(sorted(trainer._states) == sorted(fresh._states)
+          and all(states_equal(torch, trainer._states[i], fresh._states[i])
+                  for i in trainer._states),
+          "states after load_states differ")
+    weights = [w.detach().clone() for w in live]
+    grads = [w.grad.clone() for w in live]
+    fresh.step(RN_B)
+    after = [w.detach().clone() for w in live]
+    with torch.no_grad():
+        for w, w0, g in zip(live, weights, grads):
+            w.copy_(w0)
+            w.grad = g
+    trainer.step(RN_B)
+    check(all(torch.equal(w, f) for w, f in zip(live, after)),
+          "the two Trainers' updates differ")
+    print(f".states round trip after step 3: {size} bytes, "
+          f"{len(trainer._states)} states bitwise equal in a fresh "
+          f"Trainer; both Trainers' updates from one set of gradients "
+          f"bitwise equal", flush=True)
+    return {"bytes": size, "states": len(trainer._states)}
+
+
+def front_lm(torch, card, wrappers):
+    """Phase 11's gpt_like: phase 7's model and batch (B 8, L 1024, seeded
+    weights and tokens) under the default policy, FRONT_LM_STEPS steps of
+    ``Trainer(model.collect_params(), "lamb")`` under
+    CosineScheduler(max_update=3, warmup_steps=1), and the Perplexity
+    metric on the softmax of each step's logits: each step's rate equals
+    :func:`front_lm_lr`, the launches of K1 forward, K1c, K1d, K2 and K3
+    per step are exactly phase 7's, the loss falls, and the perplexity is
+    exp of the mean token loss (1e-5)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon import Trainer, metric
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import gpt_like
+    from mxnet_tpu_torch.optimizer.lr_scheduler import CosineScheduler
+
+    model = gpt_like(**CFG)
+    from_jax_params(seeded_params(model, SEED), model)
+    dev = model.word_embed.weight.data().device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    tokens = torch.randint(0, CFG["vocab_size"], (TRAIN_B, TRAIN_L),
+                           generator=gen, device=dev)
+    trainer = Trainer(model.collect_params(), "lamb", dict(
+        FRONT_LAMB, lr_scheduler=CosineScheduler(max_update=3,
+                                                 warmup_steps=1)))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    ppl = metric.Perplexity()
+    losses, rates, host_ms, update_ms = [], [], [], []
+    for w in wrappers.values():
+        w.launches = 0
+    with matmul_precision_scope("default"):
+        for k in range(1, FRONT_LM_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with autograd.record():
+                logits = model(tokens)[:, :-1]
+                loss = loss_fn(logits, tokens[:, 1:])
+            autograd.backward(loss)
+            update_ms.append(event_span(torch, lambda: trainer.step(TRAIN_B)))
+            torch.cuda.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            rates.append(trainer.learning_rate)
+            check(close(rates[-1], front_lm_lr(k)),
+                  f"step {k}: lr {rates[-1]} != {front_lm_lr(k)}")
+            with torch.no_grad():
+                probs = torch.softmax(logits.detach(), dim=-1)
+            ppl.update([tokens[:, 1:]], [probs.reshape(-1, CFG["vocab_size"])])
+            del probs, logits
+            losses.append(loss.mean().item())
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = {k: FRONT_LM_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
+    check(counts == want, f"front gpt_like launches {counts} != {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"front gpt_like loss did not fall: {losses}")
+    name, value = ppl.get()
+    want_ppl = math.exp(float(np.mean(losses)))
+    check(close(value, want_ppl, 1e-5),
+          f"perplexity {value} != exp(mean loss) {want_ppl}")
+    print(f"front door, gpt_like {CFG} B{TRAIN_B} L{TRAIN_L} on {card}, "
+          f"default policy: LAMB {FRONT_LAMB} under CosineScheduler("
+          f"max_update=3, warmup_steps=1); rates {rates} (closed form); "
+          f"loss {[round(v, 5) for v in losses]}; {name} {value:.4f} = "
+          f"exp(mean loss) {want_ppl:.4f}; step ms "
+          f"{[round(v, 3) for v in host_ms]} (Trainer.step, CUDA events "
+          f"around it: {[round(v, 3) for v in update_ms]}); launches "
+          f"{counts} (phase 7's per step)", flush=True)
+    return {"losses": losses, "rates": rates, "host_ms": host_ms,
+            "update_ms": update_ms, "perplexity": value, "launches": counts}
+
+
+def front_optimizers(torch, card):
+    """Phase 11's optimizer zoo: each of FRONT_OPTIMIZERS takes one update
+    (wd 1e-2 but GroupAdaGrad's 0, clip_gradient 1.0) of gpt_like's
+    (32000, 768) embedding and a (768,) bias (GroupAdaGrad: the
+    embedding alone; it takes no 1-D weight) from seeded weights and
+    gradients, on the card and in the port on the CPU (SGLD given the
+    same noise on both): weights and states within FRONT_OPT_TOL of the
+    largest magnitude. Then the card's update is timed (device ms, the
+    tensors' chains of elementwise launches; for the record)."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.context import resolve_device
+
+    rng = np.random.default_rng(SEED + 11)
+    shapes = [(CFG["vocab_size"], CFG["units"]), (CFG["units"],)]
+    weights = [rng.standard_normal(s, dtype=np.float32) * np.float32(0.02)
+               for s in shapes]
+    grads = [rng.standard_normal(s, dtype=np.float32) for s in shapes]
+    noise = [rng.standard_normal(s, dtype=np.float32) for s in shapes]
+    dev = resolve_device(None)
+    rows = []
+    for name, kw in FRONT_OPTIMIZERS:
+        n = 1 if name == "groupadagrad" else 2
+        label = name + "".join(f" {k}={v}" for k, v in kw.items())
+        kw = dict(kw, clip_gradient=1.0,
+                  wd=0.0 if name == "groupadagrad" else 1e-2)
+        runs = {}
+        for where in ("cpu", dev):
+            opt = opt_mod.create(name, **kw)
+            ws = [torch.from_numpy(w).to(where, copy=True)
+                  for w in weights[:n]]
+            gs = [torch.from_numpy(g).to(where) for g in grads[:n]]
+            states = [opt.create_state_multi_precision(i, w)
+                      for i, w in enumerate(ws)]
+            if name == "sgld":
+                fed = iter([torch.from_numpy(z).to(where)
+                            for z in noise[:n]])
+                opt.draw_noise = lambda w, fed=fed: next(fed)
+            opt.update(list(range(n)), ws, gs, states)
+            runs[where] = (opt, ws, gs, states)
+        err = 0.0
+        for a, b in zip(runs[dev][1] + [t for s in runs[dev][3] for t in s],
+                        runs["cpu"][1] + [t for s in runs["cpu"][3]
+                                          for t in s]):
+            scale = max(b.abs().max().item(), 1e-30)
+            err = max(err, (a.cpu() - b).abs().max().item() / scale)
+        check(err <= FRONT_OPT_TOL, f"{name} {kw}: card vs CPU {err}")
+        opt, ws, gs, states = runs[dev]
+        if name == "sgld":
+            del opt.draw_noise           # the generator's draws again
+        ms = time_ms(lambda i: opt.update(list(range(n)), ws, gs, states),
+                     iters=20, warmup=2)[0]
+        rows.append({"name": name, "label": label, "err": err, "ms": ms,
+                     "tensors": n})
+    print(f"front door, every registered optimizer on {card}: one update of "
+          f"the (32000, 768) embedding and a (768,) bias against the port on "
+          f"the CPU (limit {FRONT_OPT_TOL:g} of the largest magnitude), "
+          f"device ms per update (for the record): "
+          + "; ".join(f"{r['label']} err {r['err']:.2e} {r['ms']:.4f} ms"
+                      for r in rows),
+          flush=True)
+    names = {r["name"] for r in rows}
+    check(names == set(opt_mod.optimizer._registry),
+          f"optimizers not run on the card: "
+          f"{set(opt_mod.optimizer._registry) - names}")
+    return rows
+
+
+def front_phase(torch, card, wrappers):
+    """Phase 11: the training front door on the card (:func:`front_resnet`,
+    :func:`front_lm`, :func:`front_optimizers`)."""
+    t_phase = time.perf_counter()
+    out = {"resnet": front_resnet(torch, card, wrappers)}
+    torch.cuda.empty_cache()
+    out["gpt_like"] = front_lm(torch, card, wrappers)
+    torch.cuda.empty_cache()
+    out["optimizers"] = front_optimizers(torch, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11 took {out['seconds']:.1f} s: launches of the port's "
+          f"kernels K3 (ResNet-50, f32 and bfloat16) and K1 forward, K1c, "
+          f"K1d, K2, K3 (gpt_like); the optimizers, schedulers and metrics "
+          f"are torch's elementwise and reduction kernels", flush=True)
     return out
 
 
@@ -3692,6 +4175,11 @@ def main(argv):
         print("chip_smoke --spec: phases 1, 2 at the spec shapes and 10 "
               "passed")
         return 0
+    if "--front" in argv:        # phases 1 and 11 only: no result line
+        results["front"] = front_phase(torch, card, kernel_wrappers())
+        write_results(results)
+        print("chip_smoke --front: phases 1 and 11 passed")
+        return 0
     if "--resnet" in argv:       # phases 1 and 9 only: no result line
         results["resnet"] = resnet_phase(torch, card, kernel_wrappers(),
                                          "--profile" in argv)
@@ -3925,6 +4413,10 @@ def main(argv):
     torch.cuda.empty_cache()
     results["spec_prefix"] = spec_prefix_phase(torch, card, wrappers,
                                                "--profile" in argv)
+
+    # -- phase 11: the training front door ------------------------------------
+    torch.cuda.empty_cache()
+    results["front"] = front_phase(torch, card, wrappers)
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

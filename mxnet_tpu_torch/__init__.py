@@ -14,6 +14,7 @@ from .context import cpu, current_context, current_device, gpu
 from . import ndarray, serialization
 from . import ndarray as nd
 from . import autograd, ops, optimizer
+from .optimizer import lr_scheduler
 from . import numpy as np
 from . import numpy_extension as npx
 from . import initializer
@@ -21,7 +22,7 @@ from . import initializer as init
 from . import gluon, serving, convert, rtc
 
 __all__ = ["base", "context", "ndarray", "nd", "serialization",
-           "autograd", "ops", "optimizer", "np", "npx", "initializer",
-           "init", "gluon", "serving", "convert", "rtc", "cpu", "gpu",
-           "current_context", "current_device", "MXNetError",
+           "autograd", "ops", "optimizer", "lr_scheduler", "np", "npx",
+           "initializer", "init", "gluon", "serving", "convert", "rtc",
+           "cpu", "gpu", "current_context", "current_device", "MXNetError",
            "TransientError", "FatalError"]

@@ -3,7 +3,7 @@ PyTorch port.
 
 The port's own copy of what it needs from ``mxnet_tpu/base.py``: the
 typed ``MXNetError`` / ``TransientError`` / ``FatalError`` hierarchy the
-serving stack fails requests with, the two env-knob readers the engine
+serving stack fails requests with, the env-knob readers the engine
 defaults go through, :func:`dtype_from_any`, which turns the dtype
 spellings the reference accepts into ``torch.dtype``s, and the f32
 matmul precision policy read from ``MXNET_MATMUL_PRECISION`` at import
@@ -31,8 +31,9 @@ import numpy as onp
 import torch
 
 __all__ = ["MXNetError", "TransientError", "FatalError", "env_str",
-           "env_float", "dtype_from_any", "dtype_name", "matmul_precision",
-           "set_matmul_precision", "matmul_precision_scope"]
+           "env_int", "env_float", "dtype_from_any", "dtype_name",
+           "matmul_precision", "set_matmul_precision",
+           "matmul_precision_scope"]
 
 
 class MXNetError(RuntimeError):
@@ -52,6 +53,15 @@ class FatalError(MXNetError):
 
 def env_str(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
+
+
+def env_int(name: str, default: int = 0) -> int:
+    """Integer-valued knob; an unparseable value gives the default, as the
+    reference's reader does."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 def env_float(name: str, default: float = 0.0) -> float:

@@ -164,11 +164,31 @@ def _t(x, like=None):
                  else None)
 
 
-def _binary(fn, name):
+def _float_of(dtype):
+    """The float dtype the reference computes an integer input's
+    float-valued function in: float64 for 64-bit integers (numpy's rule,
+    with 64-bit types on), float32 for the narrower ones."""
+    return torch.float64 if dtype in (torch.int64, torch.uint64) \
+        else torch.float32
+
+
+def _is_int(dtype):
+    return not dtype.is_floating_point and not dtype.is_complex \
+        and dtype != torch.bool
+
+
+def _binary(fn, name, to_float=False):
     def op(a, b, out=None):
         if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
             a = array(a)
-        res = fn(_t(a, b), _t(b, a))
+        a, b = _t(a, b), _t(b, a)
+        if to_float:
+            dt = torch.result_type(a, b)
+            if _is_int(dt):
+                dt = _float_of(dt)
+                a, b = (x.to(dt) if isinstance(x, torch.Tensor) else x
+                        for x in (a, b))
+        res = fn(a, b)
         if out is not None:
             with torch.no_grad():
                 out.copy_(res)
@@ -192,8 +212,11 @@ _BINARY = {
     "equal": torch.eq, "not_equal": torch.ne, "less": torch.lt,
     "less_equal": torch.le, "greater": torch.gt, "greater_equal": torch.ge,
 }
+# float-valued: integer arrays are taken in _float_of's dtype first
+_FLOAT_BINARY = {"divide", "true_divide", "arctan2", "hypot", "copysign",
+                 "logaddexp"}
 for _n, _f in _BINARY.items():
-    globals()[_n] = _binary(_f, _n)
+    globals()[_n] = _binary(_f, _n, _n in _FLOAT_BINARY)
 pow = globals()["power"]
 
 
@@ -201,9 +224,24 @@ def _cbrt(x):
     return torch.sign(x) * x.abs().pow(1.0 / 3.0)
 
 
-def _unary(fn, name):
+def _rint(x):
+    """An integer array comes back as float64 of its values, as the
+    reference gives for every integer width."""
+    return x.to(torch.float64) if _is_int(x.dtype) else torch.round(x)
+
+
+def _sigmoid(x):
+    if _is_int(x.dtype):    # the reference's logistic refuses integers
+        raise TypeError(f"sigmoid does not accept dtype {x.dtype}")
+    return torch.sigmoid(x)
+
+
+def _unary(fn, name, to_float=False):
     def op(x, out=None):
-        res = fn(_t(x))
+        x = _t(x)
+        if to_float and _is_int(x.dtype):
+            x = x.to(_float_of(x.dtype))
+        res = fn(x)
         if out is not None:
             with torch.no_grad():
                 out.copy_(res)
@@ -225,20 +263,29 @@ _UNARY = {
     "tanh": torch.tanh, "arcsinh": torch.asinh, "arccosh": torch.acosh,
     "arctanh": torch.atanh, "sign": torch.sign, "floor": torch.floor,
     "ceil": torch.ceil, "trunc": torch.trunc, "fix": torch.trunc,
-    "rint": torch.round, "reciprocal": torch.reciprocal,
+    "rint": _rint, "reciprocal": torch.reciprocal,
     "negative": torch.neg, "positive": torch.positive,
     "logical_not": torch.logical_not, "isnan": torch.isnan,
     "isinf": torch.isinf, "isfinite": torch.isfinite,
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
     "rad2deg": torch.rad2deg, "deg2rad": torch.deg2rad,
-    "sigmoid": torch.sigmoid, "relu": torch.relu,
+    "sigmoid": _sigmoid, "relu": torch.relu,
     "erf": torch.erf, "erfinv": torch.erfinv,
 }
+_FLOAT_UNARY = {"exp", "expm1", "exp2", "log", "log2", "log10", "log1p",
+                "sqrt", "cbrt", "sin", "cos", "tan", "arcsin", "arccos",
+                "arctan", "sinh", "cosh", "tanh", "arcsinh", "arccosh",
+                "arctanh", "reciprocal", "degrees", "radians", "rad2deg",
+                "deg2rad", "erf", "erfinv"}
 for _n, _f in _UNARY.items():
-    globals()[_n] = _unary(_f, _n)
+    globals()[_n] = _unary(_f, _n, _n in _FLOAT_UNARY)
 
 
 def round(x, decimals=0):
+    """Round half to even; an integer array is returned unchanged, in its
+    own dtype."""
+    if _is_int(x.dtype):
+        return x
     return torch.round(x, decimals=decimals)
 
 

@@ -1,5 +1,16 @@
-"""``optimizer`` of the PyTorch port: the registry and the optimizers the
-training slice runs."""
-from .optimizer import SGD, Adam, AdamW, Optimizer, create, register
+"""``optimizer`` of the PyTorch port: the registry, the optimizer zoo,
+``Updater`` and the learning-rate schedulers."""
+from .optimizer import (SGD, NAG, LAMB, LARS, FTML, Ftrl, Adam, AdamW,
+                        Adamax, Nadam, AdaGrad, AdaDelta, RMSProp, Signum,
+                        SGLD, DCASGD, GroupAdaGrad, Optimizer, Updater,
+                        create, get_updater, register)
+from . import lr_scheduler
+from .lr_scheduler import (CosineScheduler, FactorScheduler, LRScheduler,
+                           MultiFactorScheduler, PolyScheduler)
 
-__all__ = ["Optimizer", "register", "create", "SGD", "Adam", "AdamW"]
+__all__ = ["Optimizer", "register", "create", "Updater", "get_updater",
+           "SGD", "NAG", "Signum", "SGLD", "DCASGD", "LARS", "Adam", "AdamW",
+           "Adamax", "Nadam", "AdaGrad", "AdaDelta", "RMSProp", "Ftrl",
+           "FTML", "LAMB", "GroupAdaGrad", "lr_scheduler", "LRScheduler",
+           "FactorScheduler", "MultiFactorScheduler", "PolyScheduler",
+           "CosineScheduler"]

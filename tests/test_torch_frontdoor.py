@@ -221,6 +221,40 @@ def test_np_elementwise_matches_jax(name):
     onp.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+# int64 inputs: negatives, zero and one, so that logs, inverse
+# trigonometric functions and reciprocals meet their edges (NaN and inf
+# in both packages); the second operand is positive (integer powers
+# refuse negative exponents) and has no zero (division)
+_IA = onp.array([[0, 1, 2], [3, -4, 5]], onp.int64)
+_IB = onp.array([[2, 3, 1], [5, 2, 7]], onp.int64)
+INTEGER_NAMES = sorted(tmx.np._UNARY) + sorted(tmx.np._BINARY) + [
+    "round", "around"]
+
+
+@pytest.mark.parametrize("name", INTEGER_NAMES)
+def test_np_integer_inputs_match_jax(name):
+    """On int64 arrays every elementwise name gives the JAX package's
+    dtype (float64 for the float-valued functions and for rint, int64 for
+    round, bool for the predicates) and values within 1e-12 relative
+    (float64 math libraries, each one rounding), NaN where it has NaN; a
+    name the reference refuses (sigmoid of an integer) raises TypeError in
+    both."""
+    binary = name in tmx.np._BINARY
+    jargs = [jmx.np.array(_IA)] + ([jmx.np.array(_IB)] if binary else [])
+    targs = [torch.from_numpy(_IA)] + ([torch.from_numpy(_IB)]
+                                       if binary else [])
+    try:
+        want = getattr(jmx.np, name)(*jargs).asnumpy()
+    except TypeError:
+        with pytest.raises(TypeError):
+            getattr(tmx.np, name)(*targs)
+        return
+    got = getattr(tmx.np, name)(*targs)
+    assert str(got.dtype).replace("torch.", "") == str(want.dtype), name
+    assert tuple(got.shape) == want.shape
+    onp.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.parametrize("name,kw", REDUCTION,
                          ids=[f"{n}-{k}" for n, k in REDUCTION])
 def test_np_reductions_and_shapes_match_jax(name, kw):

@@ -231,8 +231,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     hashes, the suffix-prefill, draft and verify programs), the same
     model takes a train step through the loss and the
     Trainer, the front door (mx.np, a deferred RMSNorm/Dense stack,
-    rtc.TorchModule) runs, and a tiny resnet18_v1(thumbnail=True) takes
-    a train step through the Trainer."""
+    rtc.TorchModule) runs, a tiny resnet18_v1(thumbnail=True) takes
+    a train step through the Trainer, and the training front door runs:
+    a scheduled NAG Trainer over a list of Parameters, a composite
+    metric, CTCLoss, and an Updater's state blob round trip."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -309,6 +311,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "autograd.backward(rl)\n"
         "rtr.step(2)\n"
         "assert rl.shape == (2,) and torch.isfinite(rl).all()\n"
+        "from mxnet_tpu_torch import lr_scheduler, optimizer\n"
+        "from mxnet_tpu_torch.gluon import loss as gloss, metric\n"
+        "sch = lr_scheduler.MultiFactorScheduler(step=[1], factor=0.1,"
+        " warmup_steps=1)\n"
+        "ftr = Trainer(list(rn.collect_params().values()), 'nag',"
+        " {'learning_rate': 0.05, 'lr_scheduler': sch})\n"
+        "with autograd.record():\n"
+        "    logits = rn(torch.rand(2, 3, 8, 8))\n"
+        "    fl = SoftmaxCrossEntropyLoss()(logits, torch.tensor([1, 4]))\n"
+        "autograd.backward(fl)\n"
+        "ftr.step(2)\n"
+        "acc = metric.create(['acc', metric.TopKAccuracy(2), 'loss'])\n"
+        "acc.update([torch.tensor([1, 4])], [logits.detach()])\n"
+        "assert len(acc.get()[1]) == 3\n"
+        "ctc = gloss.CTCLoss()(torch.randn(2, 5, 4), torch.tensor([[1, 2],"
+        " [3, 3]]))\n"
+        "assert ctc.shape == (2,) and torch.isfinite(ctc).all()\n"
+        "up = optimizer.get_updater(optimizer.create('lamb'))\n"
+        "wt = torch.ones(3, 2)\n"
+        "up(0, torch.full((3, 2), 0.5), wt)\n"
+        "up.set_states(up.get_states())\n"
+        "up(0, torch.full((3, 2), 0.5), wt)\n"
+        "assert torch.isfinite(wt).all() and not torch.equal(wt,"
+        " torch.ones(3, 2))\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
