@@ -11,6 +11,8 @@ NVIDIA H100.
     python3 chip_smoke.py --spec       # phases 1, 2 at phase 10's shapes,
                                        # and 10 (no result)
     python3 chip_smoke.py --front      # phases 1 and 11 only (no result)
+    python3 chip_smoke.py --zoo        # phases 1, 2 and 12 only (no
+                                       # result)
     python3 chip_smoke.py --trials     # also, after phase 1, trial builds
                                        # of K4's span, K1 forward's
                                        # tiling, K5a's cluster size,
@@ -180,6 +182,31 @@ Phases (each asserts; any failure exits non-zero before the result line):
    optimizer takes one update of gpt_like's (32000, 768) embedding and a
    (768,) bias on the card, held against the port on the CPU, and is
    timed.
+12. BERT-base pretraining and the rest of the model zoo
+   (:func:`zoo_phase`). ``BERTForPretraining(bert_base(dropout=0.0))``
+   (vocab 30522, units 768, 12 layers, 12 heads), ``initialize()`` on
+   the card: one step with the MLM and NSP losses, its loss and
+   gradients against ``no_kernels`` under highest and in norm under
+   default against highest (K1 forward, K1c, K1d 12 each, K2 26, K3 2),
+   then at ``benchmark/train_bench.py``'s settings (B 32, L 128, SGD
+   momentum 0.9, lr 0.05 on the MLM loss over every position) a warm-up
+   and 3 timed steps under each policy with exact launches (K3 once) and
+   a falling loss; one default step profiled by kind into
+   ``chiprun_out/bert_train_profile.txt``; 4 steps on the MLM plus the
+   NSP loss at those settings print both losses (the NSP head diverges
+   there). BERT
+   inference under highest: bert_base without valid_length (K1) and with
+   a ragged one (the masked plain path), bert_large at B 8, L 512, held
+   against ``no_kernels``. AlexNet, VGG-16 (and ``_bn``), SqueezeNet
+   1.1, DenseNet-121, Inception V3, MobileNet 1.0 and V2 at B 32 under
+   default, eager and replayed (bitwise equal), their B 2 logits under
+   highest against the CPU; a mobilenetv2_1.0 train step (K3 once, the
+   loss falling). ``pretrained=True``: resnet18_v1 and mobilenetv2_1.0
+   generated on the host with the port's numpy threefry, their hashes
+   the model store's manifest, their training-mode logits on the card
+   equal to ``tests/golden``'s. Phase 2 holds and times K1 non-causal at
+   BERT's (32, 12, 128, 64) under both policies and K3 on its unaligned
+   route at (4096, 30522) and (32, 2) (:func:`bert_kernel_checks`).
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -305,7 +332,10 @@ def time_ms(fn, n_inputs=1, iters=100, warmup=5):
     repeated with half as many calls, and when not even one call fits,
     the whole is tried again with a spin twice as long (a host slowed by
     its neighbours enqueues a call in more than twice the time the first
-    loop measured). ``host_ms`` is the host's time per
+    loop measured); a call with more launches than the launch queue
+    holds never fits, and then ``device_ms`` is its kernels' times summed
+    by the profiler (:func:`profiled_device_ms`). ``host_ms`` is the
+    host's time per
     call in a loop that ends in a synchronise. ``fn(i)`` cycles through
     ``n_inputs`` input sets, so that operands the main path finds cold in
     L2 (one weight set per layer) are cold here too."""
@@ -337,7 +367,30 @@ def time_ms(fn, n_inputs=1, iters=100, warmup=5):
             if enqueue_ms < spin.elapsed_time(start):
                 return start.elapsed_time(end) / n, host_ms
             n //= 2
-    check(False, "time_ms: one call outlasts a spin of 8x its host time")
+    # one call launches more kernels than the launch queue holds behind a
+    # spin (an eager DenseNet-121 at batch 32): its kernels' own times
+    dev_ms = profiled_device_ms(torch, fn, n_inputs)
+    check(dev_ms > 0, "time_ms: one call outlasts a spin of 8x its host "
+          "time, and the profiler saw no device time")
+    print(f"time_ms: one call outlasts a spin of 8x its host time (more "
+          f"launches than the queue holds); device_ms {dev_ms:.4f} is the "
+          "sum of its kernels' times by the profiler", flush=True)
+    return dev_ms, host_ms
+
+
+def profiled_device_ms(torch, fn, n_inputs=1, calls=3):
+    """The device ms of one call of ``fn``: its kernels' times summed by
+    torch.profiler, the mean over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i % n_inputs)
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / calls
 
 
 def bound_ms(nbytes, flops):
@@ -1359,6 +1412,14 @@ def train_kernel_checks(torch, dev):
 # 1024 such terms add; 3e-4 to 6.7e-4 in that emulation, and 2e-3
 # leaves 3x.
 TF32_TOL, TF32_EXACT_TOL = 2e-4, 2e-3
+# The same route at BERT's L 128, non-causal: a forward row averages 128
+# keys and a dK/dV entry sums 128 queries, too few to average the
+# kernel's and the plain version's one-step disagreements (each p or ds
+# may round one TF32 step, 2^-11 = 4.9e-4 relative, apart) below
+# TF32_TOL; one step of the largest magnitude bounds them, and 2^-10
+# leaves 2x. Measured on one H100: 1.3e-4 (forward), 4.3e-5 (dQ) and
+# 2.1e-4 (dK/dV) of the largest magnitude.
+TF32_SHORT_TOL = 2.0 ** -10
 
 
 def one_pass_checks(torch, dev):
@@ -1444,6 +1505,124 @@ def one_pass_checks(torch, dev):
           f"allowed {sdpa_bwd:.5f} ms against K1c + K1d "
           f"{rows[1]['ms'] + rows[2]['ms']:.5f}", flush=True)
     check(all(same), f"one-pass K1 not deterministic: {same}")
+    return rows
+
+
+def bert_kernel_checks(torch, dev):
+    """Phase 2 at phase 12's shapes. K1 forward, K1c and K1d non-causal at
+    BERT-base's (32, 12, 128, 64) f32 under highest (three TF32 passes,
+    FLASH_TOL) and under default (one pass: TF32_SHORT_TOL against the
+    plain versions that round to TF32, TF32_EXACT_TOL against the exact
+    ones),
+    each run twice for the same bits and timed against its tensor-core
+    bound and SDPA under the same policy; L 128 is two 64-row query tiles
+    a head, every key tile full. K3 on its unaligned route (rows not a
+    multiple of 16 bytes, so no 16-byte loads) at the MLM loss's
+    (4096, 30522) and the NSP loss's (32, 2) f32 logits, against lse_plain
+    and the no_kernels loss at 1e-5, timed against its byte bound and
+    torch.logsumexp. Returns the rows."""
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+    from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+    b, h, l, d = BERT_B, 12, BERT_L, 64
+    q, k, v, go = (torch.randn(b, h, l, d, generator=g, device=dev)
+                   for _ in range(4))
+    cost = attention_cost(b, h, l, l, d, False, 4)
+    rows = []
+    for policy, passes in (("highest", 3), ("default", 1)):
+        one = passes == 1
+        near = flash_case(torch, kfa, q, k, v, go, False, policy, one)
+        exact = flash_case(torch, kfa, q, k, v, go, False, policy) \
+            if one else near
+        shape = f"B{b} H{h} L{l} D{d} non-causal f32" + (
+            ", one TF32 pass" if one else "")
+        tol = TF32_SHORT_TOL if one else FLASH_TOL["float32"]
+        suffix = "_tf32" if one else ""
+        part_rows = []
+        with torch.no_grad(), matmul_precision_scope(policy):
+            out, lse = kfa.flash_forward(q, k, v, False)
+            dq, delta = kfa.flash_backward_dq(q, k, v, out, lse, go, False)
+            for name, part, kernel, plain, lib in (
+                    ("flash_attention_fwd", "out",
+                     lambda i: kfa.flash_forward(q, k, v, False),
+                     lambda i: kfa.flash_forward_plain(
+                         q, k, v, False, round_tf32=one),
+                     lambda i: F.scaled_dot_product_attention(q, k, v)),
+                    ("flash_attention_bwd_dq", "dq",
+                     lambda i: kfa.flash_backward_dq(q, k, v, out, lse, go,
+                                                     False),
+                     lambda i: kfa.flash_backward_dq_plain(
+                         q, k, v, out, lse, go, False, round_tf32=one),
+                     None),
+                    ("flash_attention_bwd_dkv", "dkv",
+                     lambda i: kfa.flash_backward_dkv(q, k, v, go, lse,
+                                                      delta, False),
+                     lambda i: kfa.flash_backward_dkv_plain(
+                         q, k, v, go, lse, delta, False, round_tf32=one),
+                     None)):
+                errs = {}
+                for which, res in (("near", near), ("exact", exact)):
+                    err, scale = res[part]
+                    if part == "out":
+                        err = max(err, res["lse"][0]
+                                  / max(res["lse"][1], 1.0))
+                    errs[which] = (err, scale)
+                if one:
+                    xerr, xscale = errs["exact"]
+                    xlim = TF32_EXACT_TOL * max(xscale, 1.0)
+                    print(f"{name}{suffix} {shape}: max_abs_err against the "
+                          f"exact plain version {xerr:.3e} (limit "
+                          f"{xlim:.3e})", flush=True)
+                    check(xerr <= xlim, f"{name}{suffix} {shape}: {xerr}")
+                err, scale = errs["near"]
+                nbytes, flops = cost["fwd" if part == "out" else part]
+                row = measure(name + suffix, shape, err,
+                              tol * max(scale, 1.0), kernel, plain, lib,
+                              nbytes, flops)
+                use_tc_bound(row, nbytes, flops, "float32", passes)
+                part_rows.append(row)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(qs, ks, vs)
+                sdpa_bwd = time_ms(lambda i: torch.autograd.grad(
+                    o, (qs, ks, vs), go, retain_graph=True), iters=20)[0]
+            for row in part_rows[1:]:
+                row["library_ms"] = sdpa_bwd   # one call for dQ, dK and dV
+            runs = [kfa.flash_forward(q, k, v, False)
+                    + kfa.flash_backward_dq(q, k, v, out, lse, go, False)
+                    + kfa.flash_backward_dkv(q, k, v, go, lse, delta, False)
+                    for _ in range(2)]
+        same = [torch.equal(a, b_) for a, b_ in zip(*runs)]
+        print(f"K1 forward, K1c, K1d at {shape}: out, lse, dq, delta, dk, dv "
+              f"bitwise equal on two runs {same}; SDPA backward "
+              f"({policy}) {sdpa_bwd:.5f} ms against K1c + K1d "
+              f"{part_rows[1]['ms'] + part_rows[2]['ms']:.5f}", flush=True)
+        check(all(same), f"K1 at {shape} not deterministic: {same}")
+        rows += part_rows
+        del runs, o, qs, ks, vs
+    del q, k, v, go
+    for n, vocab in ((b * l, BERT_VOCAB), (b, 2)):
+        x = torch.randn(n, vocab, generator=g, device=dev) * 2.0
+        labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
+        check(x.data_ptr() % 16 != 0 or (vocab * 4) % 16 != 0,
+              f"({n}, {vocab}): rows of 16-byte multiples take the vector "
+              "route")
+        err = (kce.fused_lse(x) - kce.lse_plain(x)).abs().max().item()
+        with tnn.no_kernels():
+            pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
+        err = max(err, (kce.cross_entropy_with_logits(x, labels) - pnll
+                        ).abs().max().item())
+        rows.append(measure(
+            "cross_entropy_lse", f"({n}, {vocab}) f32, unaligned rows", err,
+            1e-5, lambda i: kce.fused_lse(x), lambda i: kce.lse_plain(x),
+            lambda i: torch.logsumexp(x, -1), 4 * n * vocab + 4 * n,
+            4 * n * vocab))
     return rows
 
 
@@ -2210,11 +2389,13 @@ OP_KINDS = {"aten::convolution": "convolution",
 REDUCE_KERNEL = re.compile(r"at::native::reduce_kernel")
 
 
-def profile_train_step(torch, step, fname="train_profile.txt"):
+def profile_train_step(torch, step, fname="train_profile.txt", named=None):
     """``--profile``: torch.profiler over one train step; writes the table
     by kernel to chiprun_out/``fname``, with each kind's top kernels.
     Returns (device ms summed over kernels, wall ms of the profiled
-    step, device ms by kind: see :data:`OP_KINDS`)."""
+    step, device ms by kind: see :data:`OP_KINDS`). ``named`` maps more
+    kinds to regular expressions of kernel names, which take a kernel
+    before the op that launched it does (the port's kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2226,15 +2407,18 @@ def profile_train_step(torch, step, fname="train_profile.txt"):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     avgs = prof.key_averages()
     table = avgs.table(sort_by="self_device_time_total", row_limit=40)
-    split = {"convolution": 0.0, "product": 0.0, "reduction": 0.0,
-             "other": 0.0}
+    named = named or {}
+    split = dict({kind: 0.0 for kind in named}, convolution=0.0,
+                 product=0.0, reduction=0.0, other=0.0)
     by_kind = {kind: {} for kind in split}
 
     def walk(e, kind):
         kind = kind or OP_KINDS.get(e.name)
         for k in e.kernels:
-            got = kind or ("reduction" if REDUCE_KERNEL.search(k.name)
-                           else "other")
+            got = (next((n for n, pat in named.items()
+                         if re.search(pat, k.name)), None) or kind
+                   or ("reduction" if REDUCE_KERNEL.search(k.name)
+                       else "other"))
             split[got] += k.duration / 1e3
             by_kind[got][k.name] = by_kind[got].get(k.name, 0.0) \
                 + k.duration / 1e3
@@ -2405,19 +2589,22 @@ def resnet_macs(torch, net, x):
     return sum(macs), len(macs)
 
 
-def resnet_inference(torch, net, x, card, what, macs):
-    """One inference mode of phase 9 (``what``): the block eager, then
-    hybridized. The first hybridized call captures a CUDA graph and the
-    second replays it; the replay must equal the eager call bitwise, and
-    still equal it after a replay on other inputs (the block returns
+def resnet_inference(torch, net, x, card, what, macs, label="resnet50_v1",
+                     iters=RN_ITERS):
+    """One inference mode of phase 9 (``what``) of the net ``label``
+    (phase 12 runs the other vision nets through it): the block eager,
+    then hybridized. The first hybridized call captures a CUDA graph and
+    the second replays it; the replay must equal the eager call bitwise,
+    and still equal it after a replay on other inputs (the block returns
     copies of the graph's static outputs).
-    Then each is timed over RN_ITERS calls (``time_ms``): img/s from the
+    Then each is timed over ``iters`` calls (``time_ms``): img/s from the
     host ms per call (a loop that ends in a synchronise), the device ms
     per call behind a spin kernel, the busy share."""
+    batch, size = x.shape[0], x.shape[-1]
     net.hybridize(False)
     with torch.no_grad():
         eager = net(x)
-        eager_t = time_ms(lambda i: net(x), iters=RN_ITERS, warmup=2)
+        eager_t = time_ms(lambda i: net(x), iters=iters, warmup=2)
     net.hybridize()
     t0 = time.perf_counter()
     net(x)
@@ -2425,28 +2612,28 @@ def resnet_inference(torch, net, x, card, what, macs):
     capture_s = time.perf_counter() - t0
     replay = net(x)
     check(net.captures == 1 and net.replays == 2,
-          f"{what}: {net.captures} captures, {net.replays} replays")
-    check(torch.equal(replay, eager), f"{what}: a replay differs from the "
-          f"eager call by {(replay - eager).abs().max().item()}")
-    replay_t = time_ms(lambda i: net(x), iters=RN_ITERS, warmup=2)
-    check(net.captures == 1, f"{what}: captured again while timing")
+          f"{label} {what}: {net.captures} captures, {net.replays} replays")
+    check(torch.equal(replay, eager), f"{label} {what}: a replay differs "
+          f"from the eager call by {(replay - eager).abs().max().item()}")
+    replay_t = time_ms(lambda i: net(x), iters=iters, warmup=2)
+    check(net.captures == 1, f"{label} {what}: captured again while timing")
     other = net(x.flip(0))          # the same graph, other logits
     check(not torch.equal(other, replay) and torch.equal(replay, eager),
-          f"{what}: logits kept from a replay changed under a later replay "
-          "(not a copy of the graph's output)")
+          f"{label} {what}: logits kept from a replay changed under a "
+          "later replay (not a copy of the graph's output)")
     row = {"capture_s": capture_s, "replay_equals_eager": True}
     for mode, (dev_ms, host_ms) in (("eager", eager_t),
                                      ("replayed", replay_t)):
         row[mode] = {"device_ms": dev_ms, "host_ms": host_ms,
-                     "img_s": RN_B / host_ms * 1e3,
+                     "img_s": batch / host_ms * 1e3,
                      "device_busy": dev_ms / host_ms}
-        print(f"resnet50_v1 inference {what} on {card}, {mode}: "
-              f"{row[mode]['img_s']:.1f} img/s (B{RN_B}, {RN_HW}x{RN_HW}, "
-              f"mean of {RN_ITERS} calls), host_ms {host_ms:.4f}, "
+        print(f"{label} inference {what} on {card}, {mode}: "
+              f"{row[mode]['img_s']:.1f} img/s (B{batch}, {size}x{size}, "
+              f"mean of {iters} calls), host_ms {host_ms:.4f}, "
               f"device_ms {dev_ms:.4f}, device busy "
-              f"{dev_ms / host_ms:.3f}; {2 * macs * RN_B / dev_ms / 1e9:.1f}"
+              f"{dev_ms / host_ms:.3f}; {2 * macs * batch / dev_ms / 1e9:.1f}"
               f" TFLOP/s on the layers' multiply-adds", flush=True)
-    print(f"resnet50_v1 inference {what}: one replay equals one eager call "
+    print(f"{label} inference {what}: one replay equals one eager call "
           f"bitwise; capture and first replay {capture_s:.3f} s", flush=True)
     return row, eager
 
@@ -2639,35 +2826,39 @@ def resnet_grad_checks(torch, net, cpu, weights, x, y):
     with matmul_precision_scope("default"):
         loss_d, grad_d = resnet_grads(torch, net, weights, x, y)
     loss_c, grad_c = resnet_grads(torch, cpu, weights, x.cpu(), y.cpu())
-    out = {}
-    for what, (la, ga), (lb, gb), loss_tol, tol, global_tol in (
-            ("default vs highest", (loss_d, grad_d), (loss_h, grad_h),
-             POLICY_LOSS_TOL, RN_TF32_GRAD_TOL, RN_TF32_GLOBAL_TOL),
-            ("card highest vs CPU", (loss_h.cpu(), {
-                n: g.cpu() for n, g in grad_h.items()}), (loss_c, grad_c),
-             1e-5, RN_CPU_GRAD_TOL, RN_CPU_GRAD_TOL)):
-        for g in ga.values():
-            check(torch.isfinite(g).all().item(), f"{what}: non-finite grad")
-        loss_err = ((la - lb).abs().max() / lb.abs().max()).item()
-        ratios = sorted((((ga[n] - g).norm() / g.norm()).item(), n)
-                        for n, g in gb.items())
-        flat = [torch.cat([d[n].flatten().cpu() for n in gb])
-                for d in (ga, gb)]
-        overall = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
-        print(f"resnet50_v1 B4 gradients, {what}: loss relative err "
-              f"{loss_err:.3e} (limit {loss_tol:g}); {len(ratios)} "
-              f"gradients, ||err|| / ||g|| worst {ratios[-1][0]:.3e} "
-              f"({ratios[-1][1]}, limit {tol:g}), median "
-              f"{ratios[len(ratios) // 2][0]:.3e}, over all parameters "
-              f"{overall:.3e} (limit {global_tol:g})", flush=True)
-        check(loss_err <= loss_tol, f"resnet50_v1 B4 loss {what}: "
-              f"{loss_err}")
-        check(ratios[-1][0] <= tol and overall <= global_tol,
-              f"resnet50_v1 B4 gradients {what}: {ratios[-1]}, {overall}")
-        out[what] = {"loss_rel_err": loss_err, "worst": ratios[-1],
-                     "median": ratios[len(ratios) // 2][0],
-                     "all_parameters": overall}
-    return out
+    return {
+        "default vs highest": grads_in_norm(
+            torch, "resnet50_v1 B4 gradients, default vs highest",
+            (loss_d, grad_d), (loss_h, grad_h), POLICY_LOSS_TOL,
+            RN_TF32_GRAD_TOL, RN_TF32_GLOBAL_TOL),
+        "card highest vs CPU": grads_in_norm(
+            torch, "resnet50_v1 B4 gradients, card highest vs CPU",
+            (loss_h.cpu(), {n: g.cpu() for n, g in grad_h.items()}),
+            (loss_c, grad_c), 1e-5, RN_CPU_GRAD_TOL, RN_CPU_GRAD_TOL)}
+
+
+def grads_in_norm(torch, what, a, b, loss_tol, tol, global_tol):
+    """Hold step ``a``'s (loss, name -> gradient) to step ``b``'s: the
+    loss to ``loss_tol`` relative, each gradient to ``tol`` as
+    ||err|| / ||g||, and all of them together to ``global_tol``."""
+    (la, ga), (lb, gb) = a, b
+    for g in ga.values():
+        check(torch.isfinite(g).all().item(), f"{what}: non-finite grad")
+    loss_err = ((la - lb).abs().max() / lb.abs().max()).item()
+    ratios = sorted((((ga[n] - g).norm() / g.norm()).item(), n)
+                    for n, g in gb.items())
+    flat = [torch.cat([d[n].flatten().cpu() for n in gb]) for d in (ga, gb)]
+    overall = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    print(f"{what}: loss relative err {loss_err:.3e} (limit {loss_tol:g}); "
+          f"{len(ratios)} gradients, ||err|| / ||g|| worst "
+          f"{ratios[-1][0]:.3e} ({ratios[-1][1]}, limit {tol:g}), median "
+          f"{ratios[len(ratios) // 2][0]:.3e}, over all parameters "
+          f"{overall:.3e} (limit {global_tol:g})", flush=True)
+    check(loss_err <= loss_tol, f"{what}: loss {loss_err}")
+    check(ratios[-1][0] <= tol and overall <= global_tol,
+          f"{what}: {ratios[-1]}, {overall}")
+    return {"loss_rel_err": loss_err, "worst": ratios[-1],
+            "median": ratios[len(ratios) // 2][0], "all_parameters": overall}
 
 
 def resnet_phase(torch, card, wrappers, profile):
@@ -3795,6 +3986,562 @@ def front_phase(torch, card, wrappers):
     return out
 
 
+# -- phase 12: BERT-base pretraining and the rest of the model zoo -----------
+# benchmark/train_bench.py:51-60, 72, 88-91 and 792: BERTForPretraining(
+# bert_base(dropout=0.0)) (vocab 30522, units 768, hidden 3072, 12 layers,
+# 12 heads), ``initialize()``'s Uniform(0.07), batch 32 of 128 seeded
+# tokens, SGD with momentum 0.9 and lr 0.05 on the MLM loss over every
+# position with the tokens as labels; the forward computes the NSP
+# logits too, and the bench leaves them out of its loss. With the NSP
+# loss added at lr 0.05 its head diverges (:func:`bert_nsp_probe` prints
+# both losses of such steps: the update of a 2-way Dense over 768 tanh
+# features overshoots), so the NSP loss on seeded labels enters the step
+# whose gradients are checked. Each sequence is a pair: token type 0 on
+# its first half, 1 on the second
+BERT_B, BERT_L, BERT_VOCAB, BERT_STEPS = 32, 128, 30522, 3
+# a step with both losses: K1 forward, K1c and K1d once per layer; K2 for
+# embed_ln, each layer's ln1 and ln2, and mlm_ln; K3 for the MLM and the
+# NSP losses. The bench's step: K3 for the MLM loss alone
+BERT_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES},
+                     flash_attention_fwd=12, flash_attention_bwd_dq=12,
+                     flash_attention_bwd_dkv=12, layer_norm_fwd=26,
+                     cross_entropy_lse=2)
+BERT_TRAIN_LAUNCHES = dict(BERT_LAUNCHES, cross_entropy_lse=1)
+# the port's kernels in a profiled step, by name
+BERT_KINDS = {"K1": r"flash_(fwd|bwd)", "K2": r"ln_fwd", "K3": r"row_lse"}
+BERT_LARGE_B, BERT_LARGE_L = 8, 512
+# BERT's sequence and pooled outputs, the kernels against no_kernels on
+# the card, as a share of the largest magnitude: IEEE f32 sums in another
+# order (and an online softmax against a two-pass one) through 12 or 24
+# post-norm layers. Phase 6's loss through 12 layers agreed to 1e-5
+# relative; 1e-4 leaves 10x for the deeper stack
+BERT_OUT_TOL = 1e-4
+# the vision nets of phase 12 at the input size they fix (Inception 299,
+# the rest 224): inference at batch 32 under default, B 2 logits under
+# highest against the port on the CPU at RN_CPU_TOL
+ZOO_NETS = {"alexnet": 224, "vgg16": 224, "vgg16_bn": 224,
+            "squeezenet1.1": 224, "densenet121": 224, "inceptionv3": 299,
+            "mobilenet1.0": 224, "mobilenetv2_1.0": 224}
+ZOO_B, ZOO_ITERS, ZOO_TRAIN_STEPS = 32, 10, 2
+# the model store's models against tests/golden, at the reference's
+# tolerance there (tests/test_model_zoo.py)
+STORE_GOLDEN_TOL = 2e-4
+
+
+def bert_flops(b, l, units=768, hidden=3072, layers=12, vocab=30522):
+    """Operations (2 per multiply-add) of one BERT pretraining forward:
+    per layer the QKV, out and FFN products and attention's QK^T and PV,
+    then the MLM transform and tied decoder, the pooler and NSP."""
+    per_layer = (4 * units * units + 2 * units * hidden) * b * l \
+        + 2 * b * l * l * units
+    heads = (units * units + units * vocab) * b * l \
+        + (units * units + 2 * units) * b
+    return 2 * (layers * per_layer + heads)
+
+
+def bert_batch(torch, dev, b=None, l=None, seed=SEED + 12):
+    """Seeded tokens (B, L) (BERT_B, BERT_L unless given), token types (0
+    then 1 on each half) and NSP labels (B,) on the card."""
+    b, l = b or BERT_B, l or BERT_L
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tokens = torch.randint(0, BERT_VOCAB, (b, l), generator=g, device=dev)
+    types = (torch.arange(l, device=dev) >= l // 2).long().expand(b, l)
+    nsp = torch.randint(0, 2, (b,), generator=g, device=dev)
+    return tokens, types.contiguous(), nsp
+
+
+def bert_loss(net, tokens, types, nsp=None):
+    """One pretraining forward and backward: per sequence the MLM loss
+    over every position (labels the tokens), plus the NSP loss on the
+    labels ``nsp`` where given, both SoftmaxCrossEntropyLoss."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        mlm, nsp_logits = net(tokens, types)
+        loss = loss_fn(mlm, tokens)
+        if nsp is not None:
+            loss = loss + loss_fn(nsp_logits, nsp)
+    autograd.backward(loss)
+    return loss.detach()
+
+
+def bert_grads(torch, net, batch, wrappers):
+    """(loss, name -> gradient, launches) of one step; the gradients are
+    taken off the net."""
+    for w in wrappers.values():
+        w.launches = 0
+    loss = bert_loss(net, *batch)
+    grads = {n: p.grad().clone() for n, p in net.collect_params().items()}
+    net.zero_grad(set_to_none=True)
+    return loss, grads, {k: w.launches for k, w in wrappers.items()}
+
+
+def bert_grad_check(torch, net, batch, wrappers):
+    """One BERT-base step at B 32, L 128 with the MLM and the NSP losses
+    through the kernels under highest against the same under
+    ``no_kernels`` on the card, at phase 6's
+    limits (the loss to 1e-5 relative, each gradient to 1e-3 of its
+    largest magnitude), with exact launches and none under no_kernels;
+    then the step under default against highest in norm, at phase 9's
+    limits (:func:`grads_in_norm`)."""
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    with matmul_precision_scope("highest"):
+        loss_k, grad_k, counts_k = bert_grads(torch, net, batch, wrappers)
+        with tnn.no_kernels():
+            loss_p, grad_p, counts_p = bert_grads(torch, net, batch,
+                                                  wrappers)
+    check(counts_k == BERT_LAUNCHES,
+          f"BERT step launched {counts_k} != {BERT_LAUNCHES}")
+    check(not any(counts_p.values()), f"no_kernels launched {counts_p}")
+    loss_err = ((loss_k - loss_p).abs().max() / loss_p.abs().max()).item()
+    worst, worst_name = 0.0, None
+    for name, gp in grad_p.items():
+        gk = grad_k[name]
+        check(torch.isfinite(gk).all().item(), f"{name}: non-finite grad")
+        check(gp.abs().max().item() > 0, f"{name}: zero gradient")
+        ratio = ((gk - gp).abs().max() / gp.abs().max()).item()
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    print(f"BERT-base step B{BERT_B} L{BERT_L}, kernels vs no_kernels on the "
+          f"card (highest): loss relative err {loss_err:.3e} (limit 1e-5); "
+          f"{len(grad_p)} gradients, all non-zero, worst max|err| / max|g| "
+          f"{worst:.3e} ({worst_name}, limit 1e-3); launches {counts_k}",
+          flush=True)
+    check(loss_err <= 1e-5, f"BERT loss kernels vs plain: {loss_err}")
+    check(worst <= 1e-3, f"BERT gradient {worst_name}: {worst} > 1e-3")
+    del grad_p
+    with matmul_precision_scope("default"):
+        loss_d, grad_d, counts_d = bert_grads(torch, net, batch, wrappers)
+    check(counts_d == BERT_LAUNCHES,
+          f"default-policy BERT step launched {counts_d}")
+    policy = grads_in_norm(
+        torch, f"BERT-base B{BERT_B} L{BERT_L} gradients, default vs "
+        "highest", (loss_d, grad_d), (loss_k, grad_k), POLICY_LOSS_TOL,
+        RN_TF32_GRAD_TOL, RN_TF32_GLOBAL_TOL)
+    return {"loss_rel_err": loss_err, "worst_grad_ratio": worst,
+            "worst_grad": worst_name, "launches": counts_k,
+            "default_vs_highest": policy}
+
+
+def bert_train(torch, net, init, batch, card, wrappers, policy):
+    """BERT-base trains under ``policy`` (set by the caller) from the
+    weights ``init`` as the bench does: the MLM loss,
+    ``Trainer(net.collect_params(), "sgd", lr 0.05, momentum 0.9)``, a
+    warm-up step, then BERT_STEPS timed steps with exact launches and a
+    falling loss. Under default one more step is profiled (device ms by
+    kind, the busy share), written to
+    ``chiprun_out/bert_train_profile.txt``."""
+    from mxnet_tpu_torch.gluon import Trainer
+
+    dev = batch[0].device
+    params = net.collect_params()
+    for n, p in params.items():
+        p.set_data(init[n])
+    trainer = Trainer(params, "sgd", {"learning_rate": 0.05,
+                                      "momentum": 0.9})
+
+    def step():
+        loss = bert_loss(net, *batch[:2])
+        trainer.step(BERT_B, ignore_stale_grad=True)  # no NSP gradient
+        return loss
+
+    first = step().mean().item()                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    losses, host_ms, span_ms = [], [], []
+    for _ in range(BERT_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        span_ms.append(start.elapsed_time(end))
+        losses.append(loss.mean().item())
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = {k: BERT_STEPS * n for k, n in BERT_TRAIN_LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(losses)) and np.isfinite(first),
+          f"non-finite BERT loss {first} {losses}")
+    check(losses[-1] < first, f"BERT loss did not fall: {first} -> {losses}")
+    check(counts == want, f"BERT train launches {counts} != {want}")
+    step_ms = float(np.mean(host_ms))
+    flops = 3 * bert_flops(BERT_B, BERT_L)
+    out = {"warmup_loss": first, "losses": losses, "host_ms": host_ms,
+           "device_span_ms": span_ms, "step_ms": step_ms,
+           "seq_s": BERT_B / step_ms * 1e3,
+           "tok_s": BERT_B * BERT_L / step_ms * 1e3,
+           "matmul_tflop_per_step": flops / 1e12,
+           "max_memory_allocated": peak, "launches": counts,
+           "policy": policy, "card": card}
+    print(f"BERT-base pretraining on {card}, matmul precision {policy}: "
+          f"B{BERT_B} L{BERT_L} SGD momentum 0.9 lr 0.05; MLM loss "
+          f"{first:.5f} (warm-up) -> {[round(v, 5) for v in losses]}; step "
+          f"ms (host wall to a synchronise) {[round(v, 3) for v in host_ms]}"
+          f", device span ms (CUDA events) "
+          f"{[round(v, 3) for v in span_ms]}; {out['seq_s']:.1f} seq/s, "
+          f"{out['tok_s']:.1f} tokens/s; {flops / 1e12:.3f} TFLOP of "
+          f"products a step, {flops / step_ms / 1e9:.1f} TFLOP/s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; launches over "
+          f"{BERT_STEPS} steps {counts}", flush=True)
+    if policy == "default":
+        dev_ms, wall_ms, split = profile_train_step(
+            torch, step, "bert_train_profile.txt", named=BERT_KINDS)
+        check(dev_ms is not None, "the profiler saw no device time")
+        out["profile"] = {"device_ms": dev_ms, "wall_ms": wall_ms,
+                          "device_busy": dev_ms / step_ms,
+                          "by_kind_ms": split}
+        print(f"BERT-base train step (default), profiler: device ms summed "
+              f"over kernels {dev_ms:.3f} (wall ms of the profiled step "
+              f"{wall_ms:.3f}), device busy {dev_ms / step_ms:.3f} of the "
+              f"timed steps' {step_ms:.3f} ms; device ms by kind "
+              f"{ {k: round(v, 3) for k, v in split.items()} } (product: "
+              "cuBLAS; other: elementwise and copies)", flush=True)
+    net.zero_grad(set_to_none=True)
+    return out
+
+
+def bert_nsp_probe(torch, net, init, batch, steps=4):
+    """What the bench's settings do to the NSP head: from the weights
+    ``init``, ``steps`` SGD steps (lr 0.05, momentum 0.9) on the MLM plus
+    the NSP loss, under default. Prints and returns each loss's mean at
+    each step; no check."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    tokens, types, nsp = batch
+    params = net.collect_params()
+    for n, p in params.items():
+        p.set_data(init[n])
+    trainer = Trainer(params, "sgd", {"learning_rate": 0.05,
+                                      "momentum": 0.9})
+    loss_fn = SoftmaxCrossEntropyLoss()
+    mlm_l, nsp_l = [], []
+    with matmul_precision_scope("default"):
+        for _ in range(steps):
+            with autograd.record():
+                mlm, nsp_logits = net(tokens, types)
+                lm, ln = loss_fn(mlm, tokens), loss_fn(nsp_logits, nsp)
+            autograd.backward(lm + ln)
+            trainer.step(BERT_B)
+            mlm_l.append(lm.mean().item())
+            nsp_l.append(ln.mean().item())
+    print(f"BERT-base, {steps} SGD steps (lr 0.05, momentum 0.9) on the MLM "
+          f"plus the NSP loss: MLM {[round(v, 4) for v in mlm_l]}, NSP "
+          f"{[round(v, 4) for v in nsp_l]} (the loss before each step)",
+          flush=True)
+    return {"mlm": mlm_l, "nsp": nsp_l}
+
+
+def bert_held(torch, model, args, what, layers, masked, wrappers):
+    """One forward of a BERTModel through the kernels, launches exact
+    (K2 2L+1, K1 L unless ``masked``), its sequence and pooled outputs
+    held against the same under no_kernels (BERT_OUT_TOL), and timed
+    (seq/s from the host ms per call)."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    with torch.no_grad():
+        for w in wrappers.values():
+            w.launches = 0
+        seq, pooled = model(*args)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        with tnn.no_kernels():
+            pseq, ppooled = model(*args)
+        dev_ms, host_ms = time_ms(lambda i: model(*args), iters=10, warmup=2)
+    want = dict({k: 0 for k in wrappers}, layer_norm_fwd=2 * layers + 1,
+                flash_attention_fwd=0 if masked else layers)
+    check(counts == want, f"{what}: launches {counts} != {want}")
+    errs = {}
+    for part, a, b in (("seq", seq, pseq), ("pooled", pooled, ppooled)):
+        check(torch.isfinite(a).all().item(), f"{what} {part}: non-finite")
+        errs[part] = ((a - b).abs().max() / b.abs().max()).item()
+    b_ = args[0].shape[0]
+    print(f"{what}: seq {tuple(seq.shape)} and pooled {tuple(pooled.shape)} "
+          f"against no_kernels, max|err| / max|ref| {errs} (limit "
+          f"{BERT_OUT_TOL:g}); launches {counts}; host_ms {host_ms:.4f}, "
+          f"device_ms {dev_ms:.4f} a forward, {b_ / host_ms * 1e3:.1f} "
+          "seq/s", flush=True)
+    check(max(errs.values()) <= BERT_OUT_TOL, f"{what}: {errs}")
+    return {"rel_err": errs, "launches": counts, "host_ms": host_ms,
+            "device_ms": dev_ms, "seq_s": b_ / host_ms * 1e3}
+
+
+def bert_inference(torch, bert, card, wrappers):
+    """BERT inference under highest: the pretraining net's BERTModel at
+    B 32, L 128 without valid_length (K1) and with a ragged one (the
+    masked plain path), and a fresh bert_large (dropout 0,
+    ``initialize()``) at B 8, L 512 (K1 at 16 heads), each held against
+    no_kernels (:func:`bert_held`)."""
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_large
+
+    dev = bert.word_embed.weight.data().device
+    tokens, types, _ = bert_batch(torch, dev, seed=SEED + 13)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 13)
+    valid = torch.randint(1, BERT_L + 1, (BERT_B,), generator=g, device=dev)
+    valid[0] = BERT_L
+    out = {"card": card}
+    with matmul_precision_scope("highest"):
+        out["base"] = bert_held(torch, bert, (tokens, types),
+                                f"bert_base B{BERT_B} L{BERT_L}", 12, False,
+                                wrappers)
+        out["base_valid_length"] = bert_held(
+            torch, bert, (tokens, types, valid),
+            f"bert_base B{BERT_B} L{BERT_L}, valid_length "
+            f"{valid.min().item()}..{BERT_L}", 12, True, wrappers)
+        large = bert_large(dropout=0.0)
+        large.initialize()                            # gpu(0)
+        lt, ltypes, _ = bert_batch(torch, dev, BERT_LARGE_B, BERT_LARGE_L,
+                                   SEED + 15)
+        out["large"] = bert_held(
+            torch, large, (lt, ltypes),
+            f"bert_large B{BERT_LARGE_B} L{BERT_LARGE_L}", 24, False,
+            wrappers)
+    del large
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_vision(torch, card):
+    """The other vision families at full width through ``get_model`` and
+    ``initialize()`` (gpu(0)), a forward completing the deferred shapes:
+    each inference at B 32 under default eager and replayed, a replay
+    bitwise the eager call (:func:`resnet_inference`), and B 2 logits
+    under highest against the same net on the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.convert import from_jax_params, to_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    dev = mx.context.resolve_device(None)
+    rng = np.random.default_rng(SEED + 14)
+    out = {}
+    for name, size in ZOO_NETS.items():
+        net = vision.get_model(name)
+        net.initialize()                              # gpu(0)
+        x = torch.from_numpy(rng.random((ZOO_B, 3, size, size),
+                                        dtype=np.float32)).to(dev)
+        with torch.no_grad():
+            net(x[:1])                                # completes the shapes
+        macs, layers = resnet_macs(torch, net, x)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with matmul_precision_scope("default"):
+            row, eager = resnet_inference(torch, net, x, card, "f32 default",
+                                          macs, label=name, iters=ZOO_ITERS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        net.hybridize(False)
+        check(eager.shape == (ZOO_B, 1000) and torch.isfinite(eager).all()
+              .item(), f"{name}: logits {tuple(eager.shape)} or non-finite")
+        cpu = vision.get_model(name)
+        cpu.initialize(device="cpu")
+        with torch.no_grad():
+            cpu(x[:1].cpu())
+            from_jax_params(to_jax_params(net), cpu)
+            ref = cpu(x[:2].cpu())
+            with matmul_precision_scope("highest"):
+                got = net(x[:2]).cpu()
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        print(f"{name}: {macs} multiply-adds per image over {layers} "
+              f"convolution and Dense layers; max_memory_allocated at B"
+              f"{ZOO_B} {peak / 2**30:.3f} GiB; B 2 logits on the card "
+              f"(highest) against the CPU max|err| {err:.4e}, "
+              f"{err / scale:.3e} of the largest magnitude (limit "
+              f"{RN_CPU_TOL:g})", flush=True)
+        check(err <= RN_CPU_TOL * scale, f"{name} card vs CPU: {err}")
+        row.update(macs_per_image=macs, max_memory_allocated=peak,
+                   cpu_rel_err=err / scale, size=size)
+        out[name] = row
+        del net, cpu, x, eager
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train(torch, card, wrappers):
+    """mobilenetv2_1.0 trains at B 32, 224x224, under default: a warm-up
+    step, then ZOO_TRAIN_STEPS timed steps of SoftmaxCrossEntropyLoss and
+    ``Trainer("sgd", lr 0.05, momentum 0.9)``, the loss falling and K3
+    the only kernel of the port, once a step (depthwise convolutions and
+    their backward in cuDNN)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    dev = mx.context.resolve_device(None)
+    rng = np.random.default_rng(SEED + 16)
+    x = torch.from_numpy(rng.random((ZOO_B, 3, 224, 224),
+                                    dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, ZOO_B)).to(dev)
+    net = vision.mobilenet_v2_1_0()
+    net.initialize()
+    with torch.no_grad():
+        net(x[:1])
+    trainer = Trainer(net.collect_params(), "sgd",
+                      {"learning_rate": 0.05, "momentum": 0.9})
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        autograd.backward(loss)
+        trainer.step(ZOO_B)
+        return loss.detach().mean().item()
+
+    with matmul_precision_scope("default"):
+        first = step()
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        losses, host_ms = [], []
+        for _ in range(ZOO_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers},
+                cross_entropy_lse=ZOO_TRAIN_STEPS)
+    print(f"mobilenetv2_1.0 train on {card} (default): B{ZOO_B} 224x224 SGD "
+          f"momentum 0.9 lr 0.05; loss {first:.5f} (warm-up) -> "
+          f"{[round(v, 5) for v in losses]}; step ms "
+          f"{[round(v, 3) for v in host_ms]}, "
+          f"{ZOO_B / np.mean(host_ms) * 1e3:.1f} img/s; launches {counts}",
+          flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < first,
+          f"mobilenetv2_1.0 loss did not fall: {first} -> {losses}")
+    check(counts == want, f"mobilenetv2_1.0 launches {counts} != {want}")
+    return {"warmup_loss": first, "losses": losses, "host_ms": host_ms,
+            "img_s": ZOO_B / np.mean(host_ms) * 1e3, "launches": counts}
+
+
+def zoo_store(torch, card):
+    """``pretrained=True`` on a machine without JAX: resnet18_v1 and
+    mobilenetv2_1.0 generated on the host into an empty cache (under
+    ``mxnet_tpu_torch/_build/``, removed after), each file's logical
+    sha256 equal to the manifest, a second ask served from the cache,
+    the nets loaded on the card, and their training-mode logits under
+    highest on tests/golden's input equal to the goldens at rtol and
+    atol STORE_GOLDEN_TOL."""
+    import shutil
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.gluon.model_zoo import model_store, vision
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "mxnet_tpu_torch", "_build", "model_store")
+    shutil.rmtree(root, ignore_errors=True)
+    x = np.random.RandomState(1234).uniform(
+        -1, 1, size=(2, 3, 224, 224)).astype(np.float32)
+    out = {}
+    try:
+        for name, builder in (("resnet18_v1", vision.resnet18_v1),
+                              ("mobilenetv2_1.0", vision.mobilenet_v2_1_0)):
+            t0 = time.perf_counter()
+            path = model_store.get_model_file(name, root=root)
+            gen_s = time.perf_counter() - t0
+            sha = model_store._file_sha256(path)
+            check(sha == model_store._MODEL_SHA256[name],
+                  f"{name}: sha256 {sha} is not the manifest's")
+            stamp = os.stat(path).st_mtime_ns
+            net = builder(pretrained=True, root=root)        # gpu(0)
+            check(os.stat(path).st_mtime_ns == stamp,
+                  f"{name}: the cached file was generated again")
+            dev = next(iter(net.collect_params().values())).data().device
+            check(dev.type == "cuda", f"{name}: loaded on {dev}")
+            with matmul_precision_scope("highest"), autograd.record():
+                logits = net(torch.from_numpy(x).to(dev)).detach().cpu()
+            golden = np.load(os.path.join(here, "tests", "golden",
+                                          f"{name}_logits.npz"))["logits"]
+            diff = np.abs(logits.numpy() - golden)
+            bound = STORE_GOLDEN_TOL * (1 + np.abs(golden))
+            print(f"{name} pretrained=True on {card}: generated in "
+                  f"{gen_s:.2f} s on the host, sha256 {sha[:16]}... as the "
+                  f"manifest; loaded on {dev}; training-mode logits "
+                  f"(highest) against tests/golden max|err| "
+                  f"{diff.max():.3e}, worst err / (rtol |g| + atol) "
+                  f"{(diff / bound).max():.3f} (rtol = atol = "
+                  f"{STORE_GOLDEN_TOL:g})", flush=True)
+            check(bool((diff <= bound).all()),
+                  f"{name}: logits off the goldens by {diff.max()}")
+            out[name] = {"generate_s": gen_s, "sha256": sha,
+                         "max_abs_err": float(diff.max())}
+            del net
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def zoo_phase(torch, card, wrappers):
+    """Phase 12: BERT-base pretraining (:func:`bert_grad_check`,
+    :func:`bert_train` under highest and default), BERT inference
+    (:func:`bert_inference`), the vision families (:func:`zoo_vision`,
+    :func:`zoo_train`) and the model store (:func:`zoo_store`)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTForPretraining,
+                                                      bert_base)
+
+    t_phase = time.perf_counter()
+    dev = mx.context.resolve_device(None)
+    mx.np.random.seed(SEED)
+    net = BERTForPretraining(bert_base(dropout=0.0))
+    net.initialize()                                  # gpu(0)
+    params = net.collect_params()
+    init = {n: p.data().detach().clone() for n, p in params.items()}
+    n_params = sum(t.numel() for t in init.values())
+    per_token = bert_flops(1, BERT_L) / BERT_L
+    print(f"BERT-base pretraining net: {len(params)} parameters, {n_params} "
+          f"values on {init['mlm_bias'].device}; {per_token / 1e6:.1f} MFLOP "
+          "of products per token forward", flush=True)
+    batch = bert_batch(torch, dev)
+    out = {"card": card, "params": n_params,
+           "grad_check": bert_grad_check(torch, net, batch, wrappers)}
+    for policy in ("highest", "default"):
+        with matmul_precision_scope(policy):
+            out[f"train_{policy}"] = bert_train(torch, net, init, batch, card,
+                                                wrappers, policy)
+    out["nsp_probe"] = bert_nsp_probe(torch, net, init, batch)
+    out["inference"] = bert_inference(torch, net.bert, card, wrappers)
+    del net, init, batch
+    torch.cuda.empty_cache()
+    out["vision"] = zoo_vision(torch, card)
+    out["vision_train"] = zoo_train(torch, card, wrappers)
+    out["store"] = zoo_store(torch, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12 took {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+def bert_row_launches(rows, zoo):
+    """The launches of phase 2's rows at BERT's shapes: those of phase 12's
+    timed steps under their policy (K3 at the MLM logits' shape one a
+    step; at NSP's, those of the checked step)."""
+    for row in rows:
+        if f"B{BERT_B} H12 L{BERT_L} " in row["case"]:
+            one = row["name"].endswith("_tf32")
+            train = zoo["train_default" if one else "train_highest"]
+            row["launches"] = train["launches"][
+                row["name"].removesuffix("_tf32")]
+        elif row["case"].startswith(f"({BERT_B * BERT_L}, "):
+            row["launches"] = BERT_STEPS           # the MLM loss's
+        elif row["case"].endswith("unaligned rows"):
+            # the NSP loss's: the checked step, under highest and default
+            row["launches"] = 2
+
+
 def write_results(results):
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -4199,6 +4946,7 @@ def main(argv):
     fd_rows, results["frontdoor_variants"], user_module, results["rtc"] = \
         frontdoor_kernel_checks(torch, dev)
     rows += fd_rows
+    rows += bert_kernel_checks(torch, dev)
     entries = {}
     for row in rows:
         entries.setdefault(row["name"], row)
@@ -4206,6 +4954,13 @@ def main(argv):
         results["kernels"] = rows
         write_results(results)
         print("chip_smoke --kernels: phases 1 and 2 passed")
+        return 0
+    if "--zoo" in argv:          # phases 1, 2 and 12 only: no result line
+        results["zoo"] = zoo_phase(torch, card, kernel_wrappers())
+        bert_row_launches(rows, results["zoo"])
+        results["kernels"] = rows
+        write_results(results)
+        print("chip_smoke --zoo: phases 1, 2 and 12 passed")
         return 0
 
     # -- phase 3: the main path ---------------------------------------------
@@ -4417,6 +5172,11 @@ def main(argv):
     # -- phase 11: the training front door ------------------------------------
     torch.cuda.empty_cache()
     results["front"] = front_phase(torch, card, wrappers)
+
+    # -- phase 12: BERT-base pretraining and the rest of the model zoo ------
+    torch.cuda.empty_cache()
+    results["zoo"] = zoo_phase(torch, card, wrappers)
+    bert_row_launches(rows, results["zoo"])
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

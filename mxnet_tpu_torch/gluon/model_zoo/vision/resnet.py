@@ -2,10 +2,8 @@
 ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``; He et al. 1512.03385 and
 1603.05027), built from the port's Gluon layers with the reference's
 structure and parameter names, so ``collect_params()`` and ``.params``
-files match the JAX package's. ``pretrained=True`` raises: the JAX
-package's model store makes its weights with JAX's random generator,
-which torch cannot reproduce; load a ``.params`` file that either
-package wrote with ``load_parameters``.
+files match the JAX package's. ``pretrained=True`` loads the model
+store's weights (``resnet18_v1`` only; other depths raise).
 """
 from __future__ import annotations
 
@@ -223,28 +221,28 @@ resnet_block_versions = [
 
 
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
-               **kwargs):
+               device=None, **kwargs):
     """ResNet ``version`` (1 or 2) of ``num_layers`` (18, 34, 50, 101 or
     152) layers (reference resnet.py get_resnet); ``kwargs`` go to the
     net (``classes``, ``thumbnail``). Its parameters are made by
-    ``initialize()`` or ``load_parameters``."""
+    ``initialize()`` or ``load_parameters``; ``pretrained=True`` loads
+    the model store's onto ``device`` (default ``gpu(0)``)."""
     if num_layers not in resnet_spec:
         raise MXNetError(f"Invalid number of layers: {num_layers}. Options "
                          f"are {sorted(resnet_spec)}")
     if version not in (1, 2):
         raise MXNetError(f"Invalid resnet version: {version}. Options are "
                          "1 and 2.")
-    if pretrained:
-        raise MXNetError(
-            f"pretrained resnet{num_layers}_v{version}: the port has no "
-            "model store yet (the JAX package's generates its weights with "
-            "JAX's random generator, which torch cannot reproduce). Build "
-            "the net and load a .params file written by either package "
-            "with net.load_parameters(path).")
     block_type, layers, channels = resnet_spec[num_layers]
     net_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
-    return net_class(block_class, layers, channels, **kwargs)
+    net = net_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import _load_pretrained
+
+        _load_pretrained(net, f"resnet{num_layers}_v{version}", root,
+                         device if device is not None else ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

@@ -1,8 +1,8 @@
 """Basic layers of the PyTorch port (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
-``HybridSequential``, ``Dense``, ``Dropout``, ``Activation``,
-``Embedding``, ``Flatten``, ``Identity``, ``Lambda`` and
-``HybridLambda``, on the port's
+``HybridSequential``, ``HybridConcatenate``, ``Dense``, ``Dropout``,
+``Activation``, ``Embedding``, ``Flatten``, ``Identity``, ``Lambda``
+and ``HybridLambda``, on the port's
 :class:`~..block.Block` and :class:`~..parameter.Parameter`. Parameter
 names and layouts are the reference's (``Dense.weight`` is
 (units, in_units)), and ``Dense`` without ``in_units`` completes its
@@ -17,9 +17,9 @@ from ... import numpy_extension as npx
 from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Activation", "Embedding", "Flatten", "Identity", "Lambda",
-           "HybridLambda"]
+__all__ = ["Sequential", "HybridSequential", "HybridConcatenate", "Dense",
+           "Dropout", "Activation", "Embedding", "Flatten", "Identity",
+           "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -61,6 +61,19 @@ class Sequential(Block):
 class HybridSequential(Sequential, HybridBlock):
     """Sequential of hybrid blocks (reference HybridSequential); runs
     eagerly, as every HybridBlock of the port."""
+
+
+class HybridConcatenate(HybridSequential):
+    """Runs every child on the same input and concatenates their outputs
+    along ``axis`` (reference basic_layers.py:293)."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return np.concatenate([block(x) for block in self._modules.values()],
+                              axis=self.axis)
 
 
 class Dense(HybridBlock):

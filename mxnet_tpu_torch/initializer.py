@@ -9,20 +9,61 @@ place. Random draws are taken in float32 from the port's generator of
 the array's device (:func:`~mxnet_tpu_torch.ops.nn.generator`, reseeded
 by ``mx.np.random.seed``), then cast to the array's dtype. Registered by
 name, so ``init="xavier"`` resolves as in the reference.
+
+Inside :func:`threefry_keys` the draws are the reference's own: every
+``init_array`` call takes the next key of its stream (``key, sub =
+split(key)``), whatever the name rules then do with the array, and
+``Uniform`` draws its bits from that key with the port's numpy copy of
+JAX's generator (:mod:`~mxnet_tpu_torch._threefry`). The model store
+makes its weights this way.
 """
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 
+from . import _threefry
 from .base import MXNetError
 from .ops.nn import generator
 
 __all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Orthogonal", "Xavier", "MSRAPrelu", "register", "create"]
+           "Orthogonal", "Xavier", "MSRAPrelu", "register", "create",
+           "threefry_keys"]
 
 _registry: dict = {}
+
+
+class _KeyStream(threading.local):
+    key = None          # the reference's PRNG key inside threefry_keys()
+
+
+_keys = _KeyStream()
+
+
+@contextmanager
+def threefry_keys(seed: int):
+    """Initialize as the reference does after ``mx.np.random.seed(seed)``:
+    each ``init_array`` in the scope (on this thread) splits one key off
+    ``PRNGKey(seed)``, and ``Uniform`` draws from it bit for bit as
+    ``jax.random.uniform``. Other random initializers raise there."""
+    was = _keys.key
+    _keys.key = _threefry.prng_key(seed)
+    try:
+        yield
+    finally:
+        _keys.key = was
+
+
+def _next_key():
+    """The next key of the :func:`threefry_keys` stream, or None outside
+    it (the reference's ``new_key``: ``key, sub = split(key)``)."""
+    if _keys.key is None:
+        return None
+    _keys.key, sub = _threefry.split(_keys.key)
+    return sub
 
 
 def register(cls, name=None):
@@ -60,14 +101,20 @@ def _normal(arr, sigma, shape=None):
 
 
 class Initializer:
-    """Base initializer; subclasses implement ``_init_weight``."""
+    """Base initializer; subclasses implement ``_init_weight`` (and
+    ``_threefry_weight``, the draw from a reference key, where they
+    draw)."""
+
+    draws = True        # False: fills without a random draw
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
 
     def init_array(self, name: str, arr: torch.Tensor) -> None:
         """Fill ``arr`` in place by the name rules, else by
-        ``_init_weight``."""
+        ``_init_weight`` (inside :func:`threefry_keys`, by the reference's
+        draw from the array's key)."""
+        key = _next_key()
         with torch.no_grad():
             if "bias" in name or name.endswith("beta"):
                 arr.zero_()
@@ -77,27 +124,40 @@ class Initializer:
                 arr.zero_()
             elif "running_var" in name or "moving_var" in name:
                 arr.fill_(1)
+            elif key is not None and self.draws:
+                arr.copy_(torch.from_numpy(
+                    self._threefry_weight(name, tuple(arr.shape), key)))
             else:
                 self._init_weight(name, arr)
 
     def _init_weight(self, name, arr):
         raise NotImplementedError
 
+    def _threefry_weight(self, name, shape, key):
+        raise MXNetError(f"{type(self).__name__} has no threefry draw: "
+                         "threefry_keys() initializes with Uniform only")
+
     def __repr__(self):
         return f"{type(self).__name__}({self._kwargs})"
 
 
 class Zero(Initializer):
+    draws = False
+
     def _init_weight(self, name, arr):
         arr.zero_()
 
 
 class One(Initializer):
+    draws = False
+
     def _init_weight(self, name, arr):
         arr.fill_(1)
 
 
 class Constant(Initializer):
+    draws = False
+
     def __init__(self, value=0.0):
         super().__init__(value=value)
         self.value = value
@@ -118,6 +178,10 @@ class Uniform(Initializer):
 
     def _init_weight(self, name, arr):
         arr.copy_(_uniform(arr, -self.scale, self.scale))
+
+    def _threefry_weight(self, name, shape, key):
+        return _threefry.uniform(key, shape, "float32", -self.scale,
+                                 self.scale)
 
 
 class Normal(Initializer):

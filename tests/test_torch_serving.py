@@ -211,12 +211,25 @@ def test_engine_bounds_requests_on_the_host():
     assert out.dtype == onp.int32 and out.shape == (4,)
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
-    """Without device=, gpt_like, generate and LLMEngine target gpu(0);
-    with no card they raise instead of running on the CPU."""
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without device=, gpt_like, generate and LLMEngine target gpu(0),
+    and so do BERT's and the vision zoo's initialize() and a
+    pretrained=True load; with no card they raise instead of running on
+    the CPU."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         tbert.gpt_like(**CFG)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        tbert.BERTForPretraining(tbert.bert_base(
+            vocab_size=50, units=16, hidden_size=32, num_layers=1,
+            num_heads=2, max_length=8), vocab_size=50).initialize()
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        tvision.get_model("mobilenet0.25", classes=4).initialize()
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        tvision.resnet18_v1(pretrained=True, root=str(tmp_path))
+    assert not os.listdir(tmp_path)       # raised before generating
     _, tnet = _models(12)
     with pytest.raises(MXNetError, match="CUDA is not available"):
         TEngine(tnet)
@@ -234,7 +247,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     rtc.TorchModule) runs, a tiny resnet18_v1(thumbnail=True) takes
     a train step through the Trainer, and the training front door runs:
     a scheduled NAG Trainer over a list of Parameters, a composite
-    metric, CTCLoss, and an Updater's state blob round trip."""
+    metric, CTCLoss, and an Updater's state blob round trip; the BERT
+    builders and every vision module import, a tiny BERTForPretraining
+    runs with a valid_length, and resnet18_v1(pretrained=True)
+    generates the model store's weights to the manifest's hash."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -335,6 +351,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "up(0, torch.full((3, 2), 0.5), wt)\n"
         "assert torch.isfinite(wt).all() and not torch.equal(wt,"
         " torch.ones(3, 2))\n"
+        "import tempfile\n"
+        "from mxnet_tpu_torch.gluon.model_zoo import model_store\n"
+        "from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTModel,"
+        " BERTForPretraining, bert_base, bert_large)\n"
+        "from mxnet_tpu_torch.gluon.model_zoo.vision import (alexnet,"
+        " densenet, inception, mobilenet, resnet, squeezenet, vgg)\n"
+        "bp = BERTForPretraining(bert_base(vocab_size=50, units=16,"
+        " hidden_size=32, num_layers=1, num_heads=2, max_length=8),"
+        " vocab_size=50)\n"
+        "bp.initialize(device='cpu')\n"
+        "mlm, nsp = bp(torch.randint(0, 50, (2, 8)), None,"
+        " torch.tensor([8, 5]))\n"
+        "assert mlm.shape == (2, 8, 50) and nsp.shape == (2, 2)\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    r18 = vision.resnet18_v1(pretrained=True, root=root,"
+        " device='cpu')\n"
+        "    assert model_store._file_sha256(model_store.get_model_file("
+        "'resnet18_v1', root)) == model_store._MODEL_SHA256['resnet18_v1']\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -392,19 +392,21 @@ def test_conv_pool_norm_layers_match_jax():
 # ---------------------------------------------------------------------------
 # ResNet
 # ---------------------------------------------------------------------------
-RESNETS = sorted(tvision._models)
+RESNETS = sorted(n for n in tvision._models if n.startswith("resnet"))
 
 
 def test_registry_matches_the_reference_and_refuses_the_rest():
-    """The ten ResNets under the reference's names; any other reference
-    name raises MXNetError saying it is not ported; pretrained=True
-    raises with guidance (no model store in the port)."""
+    """Every name the reference registers, the ten ResNets among them;
+    any other name raises MXNetError as the reference's does;
+    pretrained=True raises with guidance for a depth the model store
+    does not hold."""
+    assert sorted(tvision._models) == sorted(jvision._models)
     assert RESNETS == sorted(n for n in jvision._models
                              if n.startswith("resnet"))
-    with pytest.raises(MXNetError, match="not ported"):
-        tvision.get_model("vgg16")
-    with pytest.raises(MXNetError, match="load_parameters"):
-        tvision.resnet18_v1(pretrained=True)
+    with pytest.raises(MXNetError, match="is not supported"):
+        tvision.get_model("resnet20_v1")
+    with pytest.raises(MXNetError, match="no offline pretrained"):
+        tvision.resnet34_v1(pretrained=True, device="cpu")
 
 
 # the builders whose every shape the JAX net is held to by tracing its
