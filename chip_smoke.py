@@ -13,6 +13,12 @@ NVIDIA H100.
     python3 chip_smoke.py --front      # phases 1 and 11 only (no result)
     python3 chip_smoke.py --zoo        # phases 1, 2 and 12 only (no
                                        # result)
+    python3 chip_smoke.py --options    # phases 1 and 13 only (no result)
+    python3 chip_smoke.py --serve-ab=A,B,B,A [--rounds=20]
+                                       # phase 3's workload on the
+                                       # engine of each tree listed
+                                       # (each holding mxnet_tpu_torch/),
+                                       # one process each (no result)
     python3 chip_smoke.py --trials     # also, after phase 1, trial builds
                                        # of K4's span, K1 forward's
                                        # tiling, K5a's cluster size,
@@ -207,6 +213,34 @@ Phases (each asserts; any failure exits non-zero before the result line):
    equal to ``tests/golden``'s. Phase 2 holds and times K1 non-causal at
    BERT's (32, 12, 128, 64) under both policies and K3 on its unaligned
    route at (4096, 30522) and (32, 2) (:func:`bert_kernel_checks`).
+13. LLMEngine's single-engine options (:func:`options_phase`) on phase
+   3's gpt_like (seeded weights, under ``highest``). Weight-only int8
+   (:func:`options_int8`): an engine with ``weight_dtype="int8"`` (int8
+   KV, 8 lanes, block 16) serves phase 3's 8 requests after ``warmup``
+   with exact launches, token for token equal to a plain engine over a
+   copy of the model holding ``dequantize(quantize(W))`` (bitwise the
+   same arithmetic, so a weight read that missed the substitution
+   fails it), beside the f32-weight engine (tok/s, peak memory); an
+   f32-KV int8-weight engine gives ``generate(weight_dtype="int8")``'s
+   tokens; a replay of the int8-weight decode step equals an eager call
+   bitwise, and it is timed beside the f32 step. Beam search
+   (:func:`options_beam`, B 2, beam 4, 128-token prompts, 32 new, f32
+   and int8 weights): sequences equal and scores within 1e-4 against
+   ``no_kernels()`` and against the port on the CPU at 8 tokens, an eos
+   that fires, exactly 2L+1 K2 launches a step. The resumed session of
+   ``benchmark/kv_economy_bench.py`` at full width
+   (:func:`options_spill`): with the host spill tier, without spill,
+   and with an 8 MiB host tier over a disk tier, every resume's tokens
+   equal the first turn's, the 60 full blocks re-attach from the host
+   (the disk) tier byte-equal to the rows the first turn wrote, exact
+   launches, the median time to first token and the save and re-attach
+   rates. The seams (:func:`options_seams`): ``LLMMetrics`` against
+   ``stats()``, every ``llm_decode`` span's trace ids, the step hook once
+   a tick, ``chaos.scope("serving.llm")`` failing exactly one request
+   typed, and a saved manifest warming a second engine that then
+   captures nothing new. Last, one in-place SGD step
+   (:func:`options_sgd`): ``generate(weight_dtype="int8")`` quantizes
+   once over two calls and follows the new weights.
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -4542,6 +4576,585 @@ def bert_row_launches(rows, zoo):
             row["launches"] = 2
 
 
+# -- phase 13: LLMEngine's single-engine options -------------------------
+# the resumed session of benchmark/kv_economy_bench.py:188-245 at full
+# width: block 16, int8 KV, 4 lanes, max_context 1024 (the default pool of
+# 4 x 64 = 256 blocks); a 968-token session (60 full blocks) takes 2 new
+# tokens, then each round a flood of 5 distinct 968-token prompts (61
+# blocks each: 305 > 256) evicts it and the session resumes; the first
+# resume is untimed (it captures the suffix bucket)
+OPT_BS, OPT_LANES, OPT_CONTEXT, OPT_SESSION = 16, 4, 1024, 968
+OPT_FLOOD, OPT_RESUMES, OPT_DISK_RESUMES = 5, 5, 2
+OPT_DISK_BYTES = 8 << 20
+# beam search: B 2, beam 4, 128-token prompts, 32 new tokens; against the
+# port on the CPU at 8
+OPT_BEAM_B, OPT_BEAM_K, OPT_BEAM_P, OPT_BEAM_CPU = 2, 4, 128, 8
+OPT_BEAM_TOL = 1e-4
+
+
+def serve_prompts():
+    """Phase 3's 8 prompts: 16..1024 seeded tokens."""
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(16, 1025, size=8)
+    return lens, [rng.integers(0, CFG["vocab_size"], size=int(p))
+                  .astype(np.int32) for p in lens]
+
+
+def expected_launches(wrappers, full=0, suffix=0, steps=0):
+    """Launches of ``full`` full prefills (2L+1 K2), ``suffix`` suffix
+    prefills and ``steps`` decode steps (L each of K4, K5a and K5b, and
+    2L+1 K2)."""
+    layers = CFG["num_layers"]
+    per = layers * (suffix + steps)
+    return dict({k: 0 for k in wrappers},
+                layer_norm_fwd=(2 * layers + 1) * (full + suffix + steps),
+                paged_attention=per, qkv_project=per, out_project=per)
+
+
+def load_dequantized(torch, src, dst):
+    """Load ``dequantize(quantize(W))`` of ``src``'s weights into
+    ``dst``: bitwise the weights an int8-weight step computes with."""
+    from mxnet_tpu_torch.contrib.quantization import (
+        dequantize_weights_int8, quantize_weights_int8)
+
+    params = {n: p.data() for n, p in src.collect_params().items()}
+    deq = dequantize_weights_int8(*quantize_weights_int8(params))
+    with torch.no_grad():
+        for n, p in dst.collect_params().items():
+            p.data().copy_(deq[n])
+
+
+def serve_engine(torch, eng, prompts, wrappers):
+    """Warm ``eng`` on the prompts' lengths, one untimed request, then
+    the prompts submitted together: (tokens, wall s, launches, stats
+    before, stats after, warmed buckets)."""
+    buckets = eng.warmup([len(p) for p in prompts])
+    eng.generate(prompts[0][:16], 4)
+    before = eng.stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    outs = [h.wait(timeout=600) for h in [eng.submit(p, NEW_TOKENS)
+                                          for p in prompts]]
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    return outs, wall, counts, before, eng.stats(), buckets
+
+
+def options_int8(torch, card, wrappers, model, model_dq):
+    """Phase 13, int8 weights: the int8-weight engine against the plain
+    engine over ``dequantize(quantize(W))`` weights (token for token) and
+    the f32-weight engine (tok/s, peak memory) on phase 3's workload,
+    exact launches, an f32-KV engine against the dense ``generate``, a
+    replay against an eager call, and the decode step's times."""
+    from mxnet_tpu_torch.gluon.model_zoo.generation import (
+        generate, paged_decode_program)
+    from mxnet_tpu_torch.serving.llm import LLMEngine
+
+    lens, prompts = serve_prompts()
+    out = {}
+    toks = {}
+    for name, net, kw in (("f32", model, {}),
+                          ("int8", model, dict(weight_dtype="int8")),
+                          ("dequantized", model_dq, {})):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        base_reserved = torch.cuda.memory_reserved()
+        with LLMEngine(net, **kw) as eng:
+            outs, wall, counts, before, after, buckets = serve_engine(
+                torch, eng, prompts, wrappers)
+            # a graph's pool keeps its blocks reserved between replays
+            reserved = torch.cuda.memory_reserved() - base_reserved
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        steps = (after["counters"]["decode_steps"]
+                 - before["counters"]["decode_steps"])
+        prefills = (after["counters"]["prefills"]
+                    - before["counters"]["prefills"])
+        expected = expected_launches(wrappers, full=prefills, steps=steps)
+        dec_s = after["decode_s"] - before["decode_s"]
+        row = {"tok_s": len(prompts) * NEW_TOKENS / wall, "wall_s": wall,
+               "decode_step_host_ms": 1e3 * dec_s / steps,
+               "decode_tok_s": (after["decode_tokens"]
+                                - before["decode_tokens"]) / dec_s,
+               "prefills": prefills, "decode_steps": steps,
+               "launches": counts, "peak_bytes": peak,
+               "reserved_bytes": reserved,
+               "graph_captures": after["graphs"]["captures"]}
+        if name == "int8":
+            row["int8_weights"] = after["int8_weights"]
+        print(f"{name}-weight engine on {card}: {len(prompts)} requests, "
+              f"{row['tok_s']:.1f} tok/s end to end, decode "
+              f"{row['decode_tok_s']:.1f} tok/s, {steps} steps of "
+              f"{row['decode_step_host_ms']:.3f} host ms, peak memory "
+              f"{peak / 2**20:.1f} MiB allocated above the model, "
+              f"{reserved / 2**20:.1f} MiB reserved while serving (the "
+              f"graphs' pools); launches {counts}, "
+              f"expected {expected}", flush=True)
+        check(prefills == len(prompts) and counts == expected,
+              f"{name}: launches {counts} != {expected}")
+        check(after["graphs"]["captures"] == before["graphs"]["captures"],
+              f"{name}: the served run captured a graph")
+        toks[name] = outs
+        out[name] = row
+    iw = out["int8"]["int8_weights"]
+    print(f"int8 weights: {iw['bytes']} bytes of codes and "
+          f"{iw['scale_bytes']} of scales, quantized in "
+          f"{iw['quantize_s']:.3f} s", flush=True)
+    for i, (a_, b_) in enumerate(zip(toks["int8"], toks["dequantized"])):
+        check(np.array_equal(a_, b_), f"request {i}: int8-weight engine "
+              f"{a_.tolist()} != dequantized-weight engine {b_.tolist()}")
+    same_f32 = sum(np.array_equal(a_, b_)
+                   for a_, b_ in zip(toks["int8"], toks["f32"]))
+    print(f"int8-weight engine == engine over dequantize(quantize(W)): "
+          f"tokens identical on {len(prompts)} requests; equal to the "
+          f"f32-weight engine's on {same_f32}", flush=True)
+    out["requests_equal_f32"] = same_f32
+
+    check_prompts = [prompts[1][:40], prompts[2][:23]]
+    with LLMEngine(model, kv_cache_dtype="float32",
+                   weight_dtype="int8") as eng:
+        paged = [eng.generate(p, 8) for p in check_prompts]
+    dense = [generate(model, p[None], 8, weight_dtype="int8").cpu()
+             .numpy()[0] for p in check_prompts]
+    for a_, b_ in zip(paged, dense):
+        check(np.array_equal(a_, b_), f"f32-KV int8-weight engine "
+              f"{a_.tolist()} != dense generate {b_.tolist()}")
+    print("int8-weight engine (f32 KV) == dense generate(weight_dtype="
+          "'int8'): greedy tokens identical on 2 prompts x 8 tokens",
+          flush=True)
+
+    g = torch.Generator(device=model.word_embed.weight.data().device)
+    g.manual_seed(SEED + 13)
+    args = decode_state(torch, model, lens + NEW_TOKENS // 2, g)
+    tk, pk, pv, table, pos = args
+    run8 = paged_decode_program(model, weight_dtype="int8")
+    run32 = paged_decode_program(model)
+    out["replay_vs_eager"] = replays_equal_eager(torch, wrappers, (
+        ("int8-weight decode", run8, (pk, pv),
+         expected_launches(wrappers, steps=1),
+         lambda call, k_, v_: call(tk, k_, v_, table, pos, g)),))
+    step = {}
+    for name, run in (("int8", run8), ("f32", run32)):
+        dev_ms, host_ms = time_ms(lambda i: run(*args, g), iters=10,
+                                  warmup=2)
+        step[name] = {"device_ms": dev_ms, "host_ms": host_ms}
+        print(f"decode step on {card}, {name} weights, replayed: device_ms "
+              f"{dev_ms:.4f} host_ms {host_ms:.4f}", flush=True)
+    out["decode_step"] = step
+    del args, pk, pv, run8, run32
+    return out
+
+
+def options_beam(torch, card, wrappers, model, cpu_model):
+    """Phase 13, beam search with f32 and int8 weights: the kernels
+    against ``no_kernels()`` on the card at 32 new tokens, the card
+    against the port on the CPU at 8, an eos that fires, exact K2
+    launches and the time per generated token."""
+    from mxnet_tpu_torch.gluon.model_zoo.generation import beam_search
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    rng = np.random.default_rng(SEED + 14)
+    prompt = rng.integers(0, CFG["vocab_size"], (OPT_BEAM_B, OPT_BEAM_P)
+                          ).astype(np.int32)
+    layers = CFG["num_layers"]
+    out = {}
+    for wd in (None, "int8"):
+        name = wd or "f32"
+        kw = dict(beam_size=OPT_BEAM_K, weight_dtype=wd)
+        # eos: the best beam's third token of a run without one
+        eos = int(beam_search(model, prompt, 3, **kw)[0][0, 0, 2])
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seqs, scores = beam_search(model, prompt, NEW_TOKENS,
+                                   eos_token=eos, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        expected = dict({k: 0 for k in wrappers},
+                        layer_norm_fwd=(2 * layers + 1) * NEW_TOKENS)
+        check(counts == expected, f"beam {name}: launches {counts} != "
+              f"{expected}")
+        with tnn.no_kernels():
+            seqs_p, scores_p = beam_search(model, prompt, NEW_TOKENS,
+                                           eos_token=eos, **kw)
+        err = (scores - scores_p).abs().max().item()
+        check(torch.equal(seqs, seqs_p) and err <= OPT_BEAM_TOL,
+              f"beam {name}: kernels vs plain sequences "
+              f"{torch.equal(seqs, seqs_p)}, scores err {err}")
+        s = seqs.cpu().numpy()
+        fired = int(((s[..., :-1] == eos) & (s[..., 1:] == eos)).any(-1)
+                    .sum())
+        check(fired > 0, f"beam {name}: eos {eos} never fired")
+        seqs8, scores8 = beam_search(model, prompt, OPT_BEAM_CPU,
+                                     eos_token=eos, **kw)
+        seqs_c, scores_c = beam_search(cpu_model, prompt, OPT_BEAM_CPU,
+                                       eos_token=eos, device="cpu", **kw)
+        err_c = (scores8.cpu() - scores_c).abs().max().item()
+        check(torch.equal(seqs8.cpu(), seqs_c) and err_c <= OPT_BEAM_TOL,
+              f"beam {name}: card vs CPU sequences "
+              f"{torch.equal(seqs8.cpu(), seqs_c)}, scores err {err_c}")
+        ms_tok = 1e3 * wall / (OPT_BEAM_B * NEW_TOKENS)
+        out[name] = {"eos": eos, "beams_fired": fired, "wall_s": wall,
+                     "ms_per_token": ms_tok, "plain_err": err,
+                     "cpu_err": err_c, "launches": counts}
+        print(f"beam search on {card}, {name} weights (B {OPT_BEAM_B}, "
+              f"beam {OPT_BEAM_K}, prompt {OPT_BEAM_P}, {NEW_TOKENS} new): "
+              f"{ms_tok:.3f} ms per generated token (of a batch row), eos "
+              f"{eos} fired in {fired} beams, scores against no_kernels "
+              f"{err:.2e} and against the CPU at {OPT_BEAM_CPU} tokens "
+              f"{err_c:.2e} (tol {OPT_BEAM_TOL:g}); launches {counts}",
+              flush=True)
+    return out
+
+
+def reattached(eng, tier):
+    """Blocks ``eng`` re-attached from ``tier`` so far (its registry
+    series)."""
+    from mxnet_tpu_torch.telemetry import get_registry
+
+    fam = get_registry().snapshot()["metrics"].get("llm_kv_reattach_total")
+    return sum(s["value"] for s in (fam or {}).get("series", ())
+               if s["labels"] == {"engine": eng.metrics.engine_id,
+                                  "tier": tier})
+
+
+def options_spill(torch, card, wrappers, model, tier, resumes, kw):
+    """Phase 13, the resumed session on one engine (``tier`` the spill
+    tier it re-attaches from, None for an engine without spill): the
+    first turn, then ``resumes`` rounds of a flood and a resume; each
+    resume's tokens equal the first turn's, a spill engine re-attaches
+    the session's 60 full blocks from ``tier`` byte-equal to the rows
+    the first turn wrote, and the resume's launches are exact."""
+    from mxnet_tpu_torch.serving.kv_hash import chain_hashes
+    from mxnet_tpu_torch.serving.llm import LLMEngine
+
+    rng = np.random.default_rng(SEED + 15)
+    vocab = CFG["vocab_size"]
+    session = rng.integers(0, vocab, OPT_SESSION).astype(np.int32)
+    floods = [[rng.integers(0, vocab, OPT_SESSION).astype(np.int32)
+               for _ in range(OPT_FLOOD)] for _ in range(resumes + 1)]
+    full = OPT_SESSION // OPT_BS
+    ttft, row = [], {"tier": tier}
+    with LLMEngine(model, block_size=OPT_BS, max_running=OPT_LANES,
+                   max_context=OPT_CONTEXT, prefix_cache=True, **kw) as eng:
+        eng.warmup([OPT_SESSION])
+        first = eng.generate(session, 2)
+        with eng._state_lock:
+            ids = torch.tensor([eng._prefix[h] for h in
+                                chain_hashes(session, OPT_BS)[:full]],
+                               device=eng._pool_k.device)
+            rows = [p.index_select(1, ids).cpu()
+                    for p in (eng._pool_k, eng._pool_v)]
+        for r in range(resumes + 1):
+            for p in floods[r]:
+                eng.generate(p, 2)
+            before = eng.stats()
+            att0 = reattached(eng, tier) if tier else 0
+            for w in wrappers.values():
+                w.launches = 0
+            stamp = []
+            t0 = time.perf_counter()
+            got = eng.submit(session, 2, on_token=lambda t: stamp.append(
+                time.perf_counter() - t0) if not stamp else None).wait(
+                    timeout=600)
+            counts = {k: w.launches for k, w in wrappers.items()}
+            after = eng.stats()
+            check(np.array_equal(got, first), f"resume {r} ({tier}): "
+                  f"{got.tolist()} != first turn {first.tolist()}")
+            c0, c1 = before["counters"], after["counters"]
+            hit = (after["prefix_cache"]["hit_requests"]
+                   - before["prefix_cache"]["hit_requests"])
+            steps = c1["decode_steps"] - c0["decode_steps"]
+            check(c1["prefills"] - c0["prefills"] == 1,
+                  f"resume {r}: {c1['prefills'] - c0['prefills']} prefills")
+            # the first resume captures the suffix bucket: its warm-up
+            # call launches once more than the replays count
+            expected = expected_launches(wrappers, full=1 - hit,
+                                         suffix=hit, steps=steps)
+            check(not r or (counts == expected
+                            and after["graphs"]["captures"]
+                            == before["graphs"]["captures"]),
+                  f"resume {r} ({tier}): launches {counts} != {expected}")
+            if tier:
+                n = reattached(eng, tier) - att0
+                check(n == full and hit == 1,
+                      f"resume {r}: {n} blocks re-attached from {tier}, "
+                      f"prefix hit {hit}")
+                with eng._state_lock:
+                    ids = torch.tensor(
+                        [eng._prefix[h] for h in
+                         chain_hashes(session, OPT_BS)[:full]],
+                        device=eng._pool_k.device)
+                    same = all(torch.equal(p.index_select(1, ids).cpu(), w)
+                               for p, w in zip((eng._pool_k, eng._pool_v),
+                                               rows))
+                check(same, f"resume {r}: re-attached pool rows differ "
+                      "from the first turn's")
+            if r:               # the first resume captures the suffix graph
+                ttft.append(1e3 * stamp[0])
+        st = eng.stats()
+    row.update(ttft_ms=sorted(ttft), ttft_median_ms=float(np.median(ttft)),
+               first=first.tolist())
+    if tier:
+        sp = st["kv_spill"]
+        row.update(save_mb_s=sp["save_bytes"] / sp["save_s"] / 1e6,
+                   reattach_mb_s=(sp["reattach_bytes"] / sp["reattach_s"]
+                                  / 1e6), save_bytes=sp["save_bytes"],
+                   reattach_bytes=sp["reattach_bytes"],
+                   demoted_to_disk=sp["demoted_to_disk"],
+                   dropped=sp["dropped"])
+    print(f"resumed session ({OPT_SESSION} tokens, {full} full blocks) on "
+          f"{card}, {tier or 'no'} spill: median time to first token "
+          f"{row['ttft_median_ms']:.3f} ms over {len(ttft)} resumes "
+          f"{[round(t, 3) for t in row['ttft_ms']]}"
+          + (f"; save {row['save_mb_s']:.1f} MB/s, re-attach "
+             f"{row['reattach_mb_s']:.1f} MB/s, {row['demoted_to_disk']} "
+             f"blocks demoted to disk" if tier else ""), flush=True)
+    return row
+
+
+def options_seams(torch, card, wrappers, model, tmp):
+    """Phase 13, the engine's seams on the card: the metrics against
+    ``stats()``, the trace ids on every decode span, the step hook once
+    per tick, a chaos fault that fails exactly one request typed, and a
+    saved manifest that warms a second engine to capture nothing new."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.base import TransientError
+    from mxnet_tpu_torch.resilience import chaos
+    from mxnet_tpu_torch.serving.llm import LLMEngine
+
+    _, prompts = serve_prompts()
+    prompts = [p[:96] for p in prompts[:4]]
+    hooks, ticks = [], []
+    out = {}
+    path = os.path.join(tmp, "manifest.json")
+    with LLMEngine(model, step_hook=lambda: hooks.append(1)) as eng:
+        real_tick = eng._tick
+
+        def counted():          # the hook calls each tick makes
+            h0 = len(hooks)
+            try:
+                return real_tick()
+            finally:
+                ticks.append(len(hooks) - h0)
+
+        eng._tick = counted
+        n0 = len(telemetry.buffer().snapshot())
+        ids = [f"opt-{i}" for i in range(len(prompts))]
+        want = [h.wait(timeout=600) for h in [
+            eng.submit(p, 8, trace_id=t) for p, t in zip(prompts, ids)]]
+        st = eng.stats()
+        m = eng.metrics
+        spans = [e for e in telemetry.buffer().snapshot()[n0:]
+                 if e["name"] == "step[llm_decode]"]
+        counters = m.counters()
+        check(counters == st["counters"]
+              and counters["decode_steps"] == st["decode_step_ms"]["count"]
+              == len(spans)
+              and counters["prefills"] == st["prefill_ms"]["count"]
+              and int(m.tokens_decode.value) == st["decode_tokens"]
+              and int(m.lanes_active.get()) == st["lanes_active"] == 0
+              and int(m.pool_free.get()) == st["pool_blocks_free"],
+              f"metrics {counters} against stats() {st['counters']}")
+        check(all(e["args"].get("trace_ids") and set(e["args"]["trace_ids"])
+                  <= set(ids) for e in spans)
+              and set().union(*(e["args"]["trace_ids"] for e in spans))
+              == set(ids), "a decode span without its lanes' trace ids")
+        with chaos.scope("serving.llm", fail="transient", times=1):
+            hs = [eng.submit(p, 8) for p in prompts]
+            faulted, served = [], []
+            for i, h in enumerate(hs):
+                try:
+                    served.append((i, h.wait(timeout=600)))
+                except TransientError as e:
+                    faulted.append((i, type(e).__name__))
+        check(len(faulted) == 1 and all(np.array_equal(t, want[i])
+                                        for i, t in served),
+              f"chaos: faulted {faulted}, the others equal an unfaulted "
+              f"run: {[np.array_equal(t, want[i]) for i, t in served]}")
+        eng.save_warmup_manifest(path)
+        buckets = eng.stats()["graphs"]["prefill_buckets"]
+    check(ticks and all(n == 1 for n in ticks),
+          f"step hook calls per tick: {sorted(set(ticks))}")
+    with LLMEngine(model) as eng:
+        warmed = eng.warmup(manifest=path)
+        cap0 = eng.stats()["graphs"]["captures"]
+        again = [eng.generate(p, 8) for p in prompts]
+        cap1 = eng.stats()["graphs"]["captures"]
+    check(warmed == buckets and cap1 == cap0
+          and all(np.array_equal(a_, b_) for a_, b_ in zip(again, want)),
+          f"manifest warmup: buckets {warmed} vs {buckets}, captures "
+          f"{cap0} -> {cap1}")
+    out.update(decode_spans=len(spans), ticks=len(ticks),
+               chaos_faulted=faulted, manifest_buckets=warmed)
+    print(f"seams on {card}: metrics agree with stats(); {len(spans)} "
+          f"decode spans carry their lanes' trace ids; the step hook ran "
+          f"once in each of {len(ticks)} ticks; chaos serving.llm failed "
+          f"request {faulted} typed and the other {len(served)} equal an "
+          f"unfaulted run; a saved manifest warmed buckets {warmed} and "
+          f"serving captured nothing new", flush=True)
+    return out
+
+
+def options_sgd(torch, model, model_dq):
+    """Phase 13, after one in-place SGD step on the model:
+    ``generate(weight_dtype="int8")`` quantizes once over two calls and
+    gives the tokens of the model's new dequantized weights."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.model_zoo import generation as gen_mod
+
+    _, prompts = serve_prompts()
+    p = prompts[1][:40][None]
+    dev = model.word_embed.weight.data().device
+    old = gen_mod.generate(model, p, 8, weight_dtype="int8")
+    tr = Trainer(model.collect_params(), "sgd", {"learning_rate": 0.5})
+    train_loss(model, torch.from_numpy(prompts[7][:256][None]).long()
+               .to(dev))
+    tr.step(1)
+    calls, real = [], gen_mod.quantize_weights_int8
+    gen_mod.quantize_weights_int8 = lambda ps: calls.append(1) or real(ps)
+    try:
+        a = gen_mod.generate(model, p, 8, weight_dtype="int8")
+        b = gen_mod.generate(model, p, 8, weight_dtype="int8")
+    finally:
+        gen_mod.quantize_weights_int8 = real
+    load_dequantized(torch, model, model_dq)
+    want = gen_mod.generate(model_dq, p, 8)
+    check(len(calls) == 1 and torch.equal(a, b) and torch.equal(a, want),
+          f"after an SGD step: {len(calls)} quantizations, tokens "
+          f"{a.tolist()} vs the new dequantized weights' {want.tolist()}")
+    print(f"after one in-place SGD step: generate(weight_dtype='int8') "
+          f"quantized once over two calls and follows the new weights "
+          f"({old.tolist()} -> {a.tolist()})", flush=True)
+    return {"quantizations": len(calls), "before": old.tolist(),
+            "after": a.tolist()}
+
+
+def options_phase(torch, card, wrappers):
+    """Phase 13: LLMEngine's single-engine options at full width
+    (:func:`options_int8`, :func:`options_beam`, :func:`options_spill`,
+    :func:`options_seams`, :func:`options_sgd`)."""
+    import tempfile
+
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.bert import gpt_like
+
+    t_phase = time.perf_counter()
+    model = gpt_like(**CFG)
+    weights = seeded_params(model, SEED)
+    model_dq, cpu_model = gpt_like(**CFG), gpt_like(device="cpu", **CFG)
+    for net in (model, model_dq, cpu_model):
+        from_jax_params(weights, net)
+    load_dequantized(torch, model, model_dq)
+    out = {"card": card}
+    out["int8"] = options_int8(torch, card, wrappers, model, model_dq)
+    out["beam"] = options_beam(torch, card, wrappers, model, cpu_model)
+    del cpu_model
+    spill = dict(kv_spill=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["spill_host"] = options_spill(torch, card, wrappers, model,
+                                          "host", OPT_RESUMES, spill)
+        out["spill_none"] = options_spill(torch, card, wrappers, model,
+                                          None, OPT_RESUMES, {})
+        out["spill_disk"] = options_spill(
+            torch, card, wrappers, model, "disk", OPT_DISK_RESUMES,
+            dict(spill, kv_spill_bytes=OPT_DISK_BYTES,
+                 kv_spill_dir=os.path.join(tmp, "spill")))
+        check(out["spill_host"]["first"] == out["spill_none"]["first"]
+              == out["spill_disk"]["first"],
+              "the session's tokens differ between the spill engines")
+        out["seams"] = options_seams(torch, card, wrappers, model, tmp)
+    out["sgd"] = options_sgd(torch, model, model_dq)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def serve_one(root, rounds):
+    """Phase 3's workload on the engine of the port found under
+    ``root`` (a tree holding ``mxnet_tpu_torch/``), imported from there:
+    its kernels built, gpt_like at full width with seeded weights, the
+    8 requests served ``rounds`` times after ``warmup`` and a warm-up
+    request. Prints one ``SERVE_ONE {...}`` line: per round the engine's
+    host ms per decode step (``decode_s`` over the steps), the end to
+    end tok/s and the decode tok/s."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import mxnet_tpu_torch
+    from mxnet_tpu_torch.base import set_matmul_precision
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon.model_zoo.bert import gpt_like
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.serving.llm import LLMEngine
+
+    check(os.path.dirname(os.path.abspath(mxnet_tpu_torch.__file__))
+          == os.path.join(root, "mxnet_tpu_torch"),
+          f"imported {mxnet_tpu_torch.__file__}, not {root}'s port")
+    set_matmul_precision("highest")
+    _build.build_all()
+    model = gpt_like(**CFG)
+    from_jax_params(seeded_params(model, SEED), model)
+    _, prompts = serve_prompts()
+    out = []
+    with LLMEngine(model) as eng:
+        eng.warmup([len(p) for p in prompts])
+        eng.generate(prompts[0][:16], 4)
+        for _ in range(rounds):
+            before = eng.stats()
+            t0 = time.perf_counter()
+            for h in [eng.submit(p, NEW_TOKENS) for p in prompts]:
+                h.wait(timeout=600)
+            wall = time.perf_counter() - t0
+            after = eng.stats()
+            steps = (after["counters"]["decode_steps"]
+                     - before["counters"]["decode_steps"])
+            dec_s = after["decode_s"] - before["decode_s"]
+            out.append({
+                "decode_host_ms": 1e3 * dec_s / steps,
+                "tok_s": len(prompts) * NEW_TOKENS / wall,
+                "decode_tok_s": (after["decode_tokens"]
+                                 - before["decode_tokens"]) / dec_s})
+    print("SERVE_ONE " + json.dumps({"root": root, "rounds": out}),
+          flush=True)
+    return 0
+
+
+def serve_ab(roots, rounds, card):
+    """Phase 3's workload served by each root's engine in turn, each in
+    a process of its own (:func:`serve_one`), on this card: list two
+    versions as A B B A. Prints each run's medians and writes them all
+    to ``chiprun_out/serve_ab.json``."""
+    runs = []
+    for root in roots:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             f"--serve-one={root}", f"--rounds={rounds}"],
+            capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("SERVE_ONE ")]
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"serve-one {root} exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        run = json.loads(lines[0][len("SERVE_ONE "):])
+        med = {k: float(np.median([r[k] for r in run["rounds"]]))
+               for k in run["rounds"][0]}
+        run["median"] = med
+        runs.append(run)
+        print(f"serve {root} on {card}, median of {rounds} rounds: "
+              f"decode host ms per step {med['decode_host_ms']:.4f}, "
+              f"tok_s {med['tok_s']:.1f}, decode tok_s "
+              f"{med['decode_tok_s']:.1f}", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "serve_ab.json"), "w") as fh:
+        json.dump({"card": card, "runs": runs}, fh, indent=1)
+    return 0
+
+
 def write_results(results):
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -4850,6 +5463,13 @@ def main(argv):
         print("chip_smoke: torch.cuda.is_available() is false — this run "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    opts = dict(a[2:].split("=", 1) for a in argv
+                if a.startswith(("--serve-one=", "--serve-ab=", "--rounds=")))
+    rounds = int(opts.get("rounds", 20))
+    if "serve-one" in opts:      # one engine's run of serve_ab: no result
+        return serve_one(opts["serve-one"], rounds)
+    if "serve-ab" in opts:       # phase 3's workload per tree: no result
+        return serve_ab(opts["serve-ab"].split(","), rounds, card_line())
     from mxnet_tpu_torch.base import (matmul_precision,
                                       matmul_precision_scope,
                                       set_matmul_precision)
@@ -4922,6 +5542,11 @@ def main(argv):
         print("chip_smoke --spec: phases 1, 2 at the spec shapes and 10 "
               "passed")
         return 0
+    if "--options" in argv:      # phases 1 and 13 only: no result line
+        results["options"] = options_phase(torch, card, kernel_wrappers())
+        write_results(results)
+        print("chip_smoke --options: phases 1 and 13 passed")
+        return 0
     if "--front" in argv:        # phases 1 and 11 only: no result line
         results["front"] = front_phase(torch, card, kernel_wrappers())
         write_results(results)
@@ -4971,10 +5596,7 @@ def main(argv):
     print(f"gpt_like {CFG}: {n_params} parameters on "
           f"{model.word_embed.weight.data().device}, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rng = np.random.default_rng(SEED + 1)
-    prompt_lens = rng.integers(16, 1025, size=8)
-    prompts = [rng.integers(0, CFG["vocab_size"], size=int(p))
-               .astype(np.int32) for p in prompt_lens]
+    prompt_lens, prompts = serve_prompts()
     wrappers = kernel_wrappers()
     with LLMEngine(model) as eng:                 # int8 KV, block 16, 8 lanes
         # the decode graph and the prompts' prefill buckets are captured
@@ -5177,6 +5799,10 @@ def main(argv):
     torch.cuda.empty_cache()
     results["zoo"] = zoo_phase(torch, card, wrappers)
     bert_row_launches(rows, results["zoo"])
+
+    # -- phase 13: LLMEngine's single-engine options ----------------------
+    torch.cuda.empty_cache()
+    results["options"] = options_phase(torch, card, wrappers)
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

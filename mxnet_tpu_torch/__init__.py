@@ -20,9 +20,11 @@ from . import numpy_extension as npx
 from . import initializer
 from . import initializer as init
 from . import gluon, serving, convert, rtc
+from . import aot, contrib, io, resilience, telemetry
 
 __all__ = ["base", "context", "ndarray", "nd", "serialization",
            "autograd", "ops", "optimizer", "lr_scheduler", "np", "npx",
            "initializer", "init", "gluon", "serving", "convert", "rtc",
+           "aot", "contrib", "io", "resilience", "telemetry",
            "cpu", "gpu", "current_context", "current_device", "MXNetError",
            "TransientError", "FatalError"]

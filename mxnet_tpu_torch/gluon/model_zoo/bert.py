@@ -155,6 +155,13 @@ class _CausalLM(HybridBlock):
     def vocab_size(self) -> int:
         return self.word_embed.weight.shape[0]
 
+    def _pos(self):
+        """``pos_embed`` as a layer reads its weight, through its
+        Parameter's ``data()``, so that
+        :func:`~mxnet_tpu_torch.gluon.parameter.substituted` reaches it
+        on the calling thread."""
+        return self.params["pos_embed"].data()
+
     def _head(self, seq):
         return torch.matmul(seq, self.word_embed.weight.data().t())
 
@@ -167,7 +174,7 @@ class _CausalLM(HybridBlock):
             # the reference's pos_embed[:l] then fails to broadcast
             raise MXNetError(f"sequence length {l} exceeds the model's "
                              f"context window (max_length={rows})")
-        emb = self.word_embed(token_ids) + self.pos_embed[:l][None]
+        emb = self.word_embed(token_ids) + self._pos()[:l][None]
         return self._head(self.encoder(emb))
 
     def decode_step(self, token_ids, cache_k, cache_v, pos: int):
@@ -184,7 +191,7 @@ class _CausalLM(HybridBlock):
             raise MXNetError(
                 f"positions [{pos}, {pos + t}) exceed the model's context "
                 f"window (max_length={rows})")
-        emb = self.word_embed(token_ids) + self.pos_embed[pos:pos + t][None]
+        emb = self.word_embed(token_ids) + self._pos()[pos:pos + t][None]
         seq, ck, cv = self.encoder.forward_step(emb, cache_k, cache_v, pos)
         return self._head(seq), ck, cv
 
@@ -199,7 +206,7 @@ class _CausalLM(HybridBlock):
         t = token_ids.shape[1]
         idx = (positions.long()[:, None]
                + torch.arange(t, device=token_ids.device)[None])
-        emb = self.word_embed(token_ids) + self.pos_embed[idx]
+        emb = self.word_embed(token_ids) + self._pos()[idx]
         seq, pk, pv = self.encoder.forward_step_paged(
             emb, pool_k, pool_v, block_table, positions)
         return self._head(seq), pk, pv

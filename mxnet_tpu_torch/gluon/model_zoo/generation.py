@@ -12,6 +12,14 @@ tail of a prompt; with speculative decoding,
 (:func:`_spec_accept`). Sampling draws from an explicit
 ``torch.Generator``.
 
+``weight_dtype="int8"`` (:func:`generate`, :func:`beam_search` and
+every paged program but the draft's) runs the model on weight-only int8:
+the weights are quantized once per weight version
+(:func:`_int8_weights`, the reference's ``_apply_weight_dtype``) and
+dequantized inside each step, which runs the model with every
+parameter substituted (:func:`_with_weights`), so every kernel reads
+the dequantized weights.
+
 Where the reference compiles each program once per shape and memoizes
 it (``_paged_jit``, ``:393``), a program here captures its step on a
 CUDA device as a ``torch.cuda.CUDAGraph`` once per key and replays it
@@ -27,7 +35,9 @@ asked for that device.
 """
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 from typing import Dict, Optional
 
 import numpy as onp
@@ -35,15 +45,85 @@ import torch
 
 from ...base import MXNetError, matmul_precision
 from ...context import resolve_device
+from ...contrib.quantization import (dequantize_weights_int8,
+                                     quantize_weights_int8)
 from ...ops.kernels import _build
 from ...ops.kernels.fused_decode import fused_decode_armed
 from ...ops.nn import kernels_enabled
+from ...telemetry import tracing
+from ..parameter import substituted
 
-__all__ = ["generate", "paged_decode_program", "paged_prefill_program",
-           "paged_suffix_prefill_program", "paged_spec_draft_program",
-           "paged_spec_verify_program", "GraphedProgram"]
+__all__ = ["generate", "beam_search", "paged_decode_program",
+           "paged_prefill_program", "paged_suffix_prefill_program",
+           "paged_spec_draft_program", "paged_spec_verify_program",
+           "GraphedProgram"]
 
 _KV_CACHE_DTYPES = (None, "int8", "float32", "bfloat16", "float16")
+
+# model -> (weight-version key, (qparams, scales)): the weight-only int8
+# tree, re-quantized only when a weight changes. Weak-keyed and off the
+# model, as the reference's ``_INT8W_CACHES``
+_INT8W_CACHES = weakref.WeakKeyDictionary()
+_INT8W_LOCK = threading.Lock()
+
+
+def _int8_weights(model):
+    """The model's weight-only int8 tree ``(qparams, scales)``, memoized
+    per weight version. The reference keys its memo on the identity of
+    every parameter buffer, which a JAX update replaces; the port's
+    Trainer and ``set_data`` write in place, so the key here is each
+    tensor's address and its version counter (which every in-place
+    write bumps): a generate() after a training step re-quantizes."""
+    params = {n: p.data() for n, p in model.collect_params().items()}
+    key = tuple((n, t.data_ptr(), t._version)
+                for n, t in sorted(params.items()))
+    with _INT8W_LOCK:
+        cached = _INT8W_CACHES.get(model)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    tree = quantize_weights_int8(params)
+    with _INT8W_LOCK:
+        _INT8W_CACHES[model] = (key, tree)
+    return tree
+
+
+def _resolve_weights(model, weight_dtype, int8_weights=None):
+    """The int8 tree a program runs on: None for the model's own
+    weights, ``int8_weights`` when given (an engine's tree, fixed when
+    it was built), else the model's memoized tree."""
+    if weight_dtype is None:
+        return None
+    if weight_dtype != "int8":
+        raise MXNetError(
+            f"weight_dtype {weight_dtype!r} not supported (int8)")
+    return int8_weights if int8_weights is not None \
+        else _int8_weights(model)
+
+
+def _weights_key(tree):
+    """The addresses of an int8 tree's tensors (part of a graph's key:
+    the graph reads them where they lay at capture)."""
+    if tree is None:
+        return None
+    q, scales = tree
+    return tuple((n, t.data_ptr()) for n, t in sorted(q.items())) + \
+        tuple((n, t.data_ptr()) for n, t in sorted(scales.items()))
+
+
+def _with_weights(model, tree, fn, *args):
+    """``fn(*args)`` with the model's weights dequantized from ``tree``
+    (None: the model's own weights). Every ``Parameter.data()`` read
+    returns the dequantized tensor (:func:`~..parameter.substituted`),
+    on this thread only: the model's weights read that way, so no read
+    serves the f32 weights, and another thread using the same model
+    meanwhile sees its own. Inside a captured graph the dequantization
+    is part of the step."""
+    if tree is None:
+        return fn(*args)
+    deq = dequantize_weights_int8(*tree)
+    named = model.collect_params()
+    with substituted((p, deq[n]) for n, p in named.items()):
+        return fn(*args)
 
 
 def _sample(logits, generator, greedy, temperature, top_k):
@@ -84,15 +164,10 @@ def _model_device(model, device):
     return dev
 
 
-def generate(model, prompt_ids, max_new_tokens: int,
-             max_length: Optional[int] = None, greedy: bool = True,
-             temperature: float = 1.0, top_k: int = 0, eos_token: int = -1,
-             seed: int = 0, kv_cache_dtype: Optional[str] = None,
-             device=None):
-    """Generate ``max_new_tokens`` continuations of ``prompt_ids`` (B, P)
-    through a dense per-batch KV cache. Returns a (B, max_new_tokens)
-    int32 tensor on the model's device. Once a sequence emits
-    ``eos_token``, its remaining positions repeat it."""
+def _prep(model, prompt_ids, max_new_tokens, max_length, kv_cache_dtype,
+          device):
+    """Shared dense-decode setup: the prompt on the model's device, the
+    length checks against the context window, and the caches."""
     dev = _model_device(model, device)
     if isinstance(prompt_ids, torch.Tensor):
         prompt = prompt_ids.to(device=dev, dtype=torch.int32)
@@ -110,9 +185,27 @@ def generate(model, prompt_ids, max_new_tokens: int,
                          f"context window (max_length={rows})")
     ck, cv = model.init_cache(b, lmax,
                               dtype=_resolve_cache_dtype(model, kv_cache_dtype))
+    return dev, prompt, b, p, ck, cv
+
+
+def generate(model, prompt_ids, max_new_tokens: int,
+             max_length: Optional[int] = None, greedy: bool = True,
+             temperature: float = 1.0, top_k: int = 0, eos_token: int = -1,
+             seed: int = 0, kv_cache_dtype: Optional[str] = None,
+             weight_dtype: Optional[str] = None, device=None):
+    """Generate ``max_new_tokens`` continuations of ``prompt_ids`` (B, P)
+    through a dense per-batch KV cache. Returns a (B, max_new_tokens)
+    int32 tensor on the model's device. Once a sequence emits
+    ``eos_token``, its remaining positions repeat it.
+    ``weight_dtype="int8"`` runs on the model's weight-only int8 tree
+    (quantized once per weight version)."""
+    dev, prompt, b, p, ck, cv = _prep(model, prompt_ids, max_new_tokens,
+                                      max_length, kv_cache_dtype, device)
+    tree = _resolve_weights(model, weight_dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    with torch.no_grad():
+
+    def run(ck, cv):
         logits, ck, cv = model.decode_step(prompt, ck, cv, 0)
         tok = _sample(logits[:, -1], gen, greedy, temperature, top_k)
         done = tok == eos_token
@@ -124,7 +217,84 @@ def generate(model, prompt_ids, max_new_tokens: int,
             done = done | (nxt == eos_token)
             out.append(nxt)
             tok = nxt
-    return torch.stack(out, dim=1)
+        return torch.stack(out, dim=1)
+
+    with torch.no_grad():
+        return _with_weights(model, tree, run, ck, cv)
+
+
+def beam_search(model, prompt_ids, max_new_tokens: int, beam_size: int = 4,
+                max_length: Optional[int] = None, alpha: float = 1.0,
+                eos_token: int = -1, kv_cache_dtype: Optional[str] = None,
+                weight_dtype: Optional[str] = None, device=None):
+    """Beam-search decoding (reference ``generation.py:277``) through a
+    dense KV cache of ``B * beam_size`` rows.
+
+    The prompt prefills un-tiled at batch B and the caches are tiled K
+    times after it; each step scores every beam's continuations, keeps
+    the K best per batch row, and reorders the caches by parent beam (a
+    gather on the cache's batch axis). A finished beam continues with
+    ``eos_token`` at zero cost and nothing else. Returns ``(sequences
+    (B, K, max_new_tokens) int32, scores (B, K) float32)`` ordered
+    best-first, the scores length-normalized: ``logp / len**alpha``
+    (``alpha=0`` gives the joint log-probability)."""
+    k = int(beam_size)
+    dev, prompt, b, p, ck, cv = _prep(model, prompt_ids, max_new_tokens,
+                                      max_length, kv_cache_dtype, device)
+    tree = _resolve_weights(model, weight_dtype)
+    neg_inf = -1e9
+
+    def run(ck, cv):
+        logits, ck, cv = model.decode_step(prompt, ck, cv, 0)
+        logp0 = torch.log_softmax(logits[:, -1].float(), dim=-1)
+        vocab = logp0.shape[-1]
+        scores, first = torch.topk(logp0, k, dim=-1)    # (B, K)
+        first = first.to(torch.int32)
+        # (L, B, ...) -> (L, B*K, ...): each row's K beams side by side
+        ck = ck.repeat_interleave(k, dim=1)
+        cv = cv.repeat_interleave(k, dim=1)
+        done = first == eos_token
+        seqs = torch.zeros((b, k, max_new_tokens), dtype=torch.int32,
+                           device=dev)
+        seqs[:, :, 0] = first
+        lengths = torch.ones((b, k), dtype=torch.int32, device=dev)
+        frozen = torch.full((vocab,), neg_inf, device=dev)
+        frozen[min(max(eos_token, 0), vocab - 1)] = 0.0
+        rows = torch.arange(b, device=dev)[:, None] * k
+        tok = first
+        for step in range(1, max_new_tokens):
+            lg, ck, cv = model.decode_step(tok.reshape(b * k, 1), ck, cv,
+                                           p + step - 1)
+            logp = torch.log_softmax(lg[:, -1].float(), dim=-1).reshape(
+                b, k, vocab)
+            # finished beams: eos at zero added cost, nothing else
+            logp = torch.where(done[:, :, None], frozen[None, None], logp)
+            total = scores[:, :, None] + logp               # (B, K, V)
+            scores, idx = torch.topk(total.reshape(b, k * vocab), k,
+                                     dim=-1)
+            parent = torch.div(idx, vocab, rounding_mode="floor")
+            new_tok = (idx % vocab).to(torch.int32)
+            flat = (rows + parent).reshape(-1)
+            ck = ck.index_select(1, flat)
+            cv = cv.index_select(1, flat)
+            done = torch.gather(done, 1, parent)
+            lengths = torch.gather(lengths, 1, parent)
+            seqs = torch.gather(seqs, 1, parent[:, :, None].expand(
+                b, k, max_new_tokens))
+            seqs[:, :, step] = torch.where(
+                done, torch.full_like(new_tok, eos_token), new_tok)
+            lengths = lengths + (~done).to(torch.int32)
+            done = done | (new_tok == eos_token)
+            tok = new_tok
+        norm = torch.pow(lengths.float(), alpha)
+        final = scores / torch.clamp(norm, min=1.0)
+        order = torch.argsort(-final, dim=1, stable=True)
+        return (torch.gather(seqs, 1, order[:, :, None].expand(
+                    b, k, max_new_tokens)),
+                torch.gather(final, 1, order))
+
+    with torch.no_grad():
+        return _with_weights(model, tree, run, ck, cv)
 
 
 def routing_key(device) -> tuple:
@@ -279,12 +449,16 @@ class GraphedProgram:
                 launches.append((w, w.launches - n))
                 w.launches = n
         torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        self.capture_s += dt
+        # a capture is the port's compile: the open step's compile bucket
+        tracing.attribute("compile", dt)
         return _Captured(graph, static, out, tuple(launches))
 
 
-def paged_decode_program(model, *, greedy=True, temperature=1.0, top_k=0,
+def paged_decode_program(model, *, weight_dtype=None, int8_weights=None,
+                         greedy=True, temperature=1.0, top_k=0,
                          graph_pool=None):
     """The continuous-batching decode step over the whole lane set.
 
@@ -296,24 +470,29 @@ def paged_decode_program(model, *, greedy=True, temperature=1.0, top_k=0,
     updated in place), attended through the pool, and sampled. Inactive
     lanes point at a trash block; their outputs are ignored by the
     scheduler. On a CUDA device the step replays a graph captured once
-    per key."""
+    per key. ``weight_dtype="int8"`` runs on ``int8_weights`` (an
+    engine's tree), else the model's memoized int8 tree as it is now:
+    see :func:`_resolve_weights`."""
+    tree = _resolve_weights(model, weight_dtype, int8_weights)
 
     def body(tokens, pool_k, pool_v, block_table, positions, generator):
         with torch.no_grad():
-            logits, pool_k, pool_v = model.decode_step_paged(
-                tokens, pool_k, pool_v, block_table, positions)
+            logits, pool_k, pool_v = _with_weights(
+                model, tree, model.decode_step_paged, tokens, pool_k,
+                pool_v, block_table, positions)
             nxt = _sample(logits[:, -1], generator, greedy, temperature,
                           top_k)
         return nxt, pool_k, pool_v
 
     return GraphedProgram(
         "llm.decode", body, (0, 3, 4),
-        (id(model), bool(greedy), float(temperature), int(top_k)),
-        not greedy, graph_pool)
+        (id(model), bool(greedy), float(temperature), int(top_k),
+         weight_dtype, _weights_key(tree)), not greedy, graph_pool)
 
 
 def paged_prefill_program(model, *, prefill_len, block_size,
-                          kv_cache_dtype=None, greedy=True, temperature=1.0,
+                          kv_cache_dtype=None, weight_dtype=None,
+                          int8_weights=None, greedy=True, temperature=1.0,
                           top_k=0, graph_pool=None):
     """The prefill-and-splice step for one prompt-length bucket.
 
@@ -326,8 +505,10 @@ def paged_prefill_program(model, *, prefill_len, block_size,
     the first token is sampled from the logits at ``last_idx``, the last
     real prompt position: an int or a (1,) int64 tensor, read on the
     device, so that one graph serves every prompt of the bucket.
-    ``graph_pool`` lets the buckets' graphs share one memory pool."""
+    ``graph_pool`` lets the buckets' graphs share one memory pool;
+    ``weight_dtype`` / ``int8_weights`` as :func:`paged_decode_program`'s."""
     cache_dtype = _resolve_cache_dtype(model, kv_cache_dtype)
+    tree = _resolve_weights(model, weight_dtype, int8_weights)
     pb, bs = int(prefill_len), int(block_size)
     if pb % bs:
         raise MXNetError(
@@ -337,7 +518,8 @@ def paged_prefill_program(model, *, prefill_len, block_size,
     def body(prompt, last_idx, pool_k, pool_v, block_ids, generator):
         with torch.no_grad():
             ck, cv = model.init_cache(1, pb, dtype=cache_dtype)
-            logits, ck, cv = model.decode_step(prompt, ck, cv, 0)
+            logits, ck, cv = _with_weights(model, tree, model.decode_step,
+                                           prompt, ck, cv, 0)
             lyr, _, heads, _, dp = ck.shape
 
             def blocks(c):              # (L,1,H,Pb,D') -> (L,nb,H,bs,D')
@@ -353,10 +535,12 @@ def paged_prefill_program(model, *, prefill_len, block_size,
     return GraphedProgram(
         "llm.prefill", body, (0, 1, 4),
         (id(model), pb, bs, cache_dtype, bool(greedy), float(temperature),
-         int(top_k)), not greedy, graph_pool)
+         int(top_k), weight_dtype, _weights_key(tree)), not greedy,
+        graph_pool)
 
 
 def paged_suffix_prefill_program(model, *, suffix_len, block_size,
+                                 weight_dtype=None, int8_weights=None,
                                  greedy=True, temperature=1.0, top_k=0,
                                  graph_pool=None):
     """The shared-prefix suffix prefill for one suffix-length bucket
@@ -373,7 +557,9 @@ def paged_suffix_prefill_program(model, *, suffix_len, block_size,
     token's index within the suffix. ``start_pos`` and ``last_idx`` are
     ints or (1,) int64 tensors, read on the device. Pad tokens past
     ``last_idx`` write into lane-owned slots that decode overwrites
-    later, or into the trash block where the table points there."""
+    later, or into the trash block where the table points there.
+    ``weight_dtype`` / ``int8_weights`` as :func:`paged_decode_program`'s."""
+    tree = _resolve_weights(model, weight_dtype, int8_weights)
     sb, bs = int(suffix_len), int(block_size)
     if sb % bs:
         raise MXNetError(
@@ -383,16 +569,17 @@ def paged_suffix_prefill_program(model, *, suffix_len, block_size,
              generator):
         with torch.no_grad():
             pos = start_pos.reshape(1).to(torch.int32)
-            logits, pool_k, pool_v = model.decode_step_paged(
-                suffix, pool_k, pool_v, block_table, pos)
+            logits, pool_k, pool_v = _with_weights(
+                model, tree, model.decode_step_paged, suffix, pool_k,
+                pool_v, block_table, pos)
             last = logits.index_select(1, last_idx)[:, 0]
             first = _sample(last, generator, greedy, temperature, top_k)[0]
         return first, pool_k, pool_v
 
     return GraphedProgram(
         "llm.prefill_suffix", body, (0, 1, 2, 5),
-        (id(model), sb, bs, bool(greedy), float(temperature), int(top_k)),
-        not greedy, graph_pool)
+        (id(model), sb, bs, bool(greedy), float(temperature), int(top_k),
+         weight_dtype, _weights_key(tree)), not greedy, graph_pool)
 
 
 # -- speculative decoding (draft proposes, the target verifies) ------------
@@ -532,7 +719,8 @@ def paged_spec_draft_program(model, *, draft_k, greedy=True,
         not greedy, graph_pool)
 
 
-def paged_spec_verify_program(model, *, draft_k, greedy=True,
+def paged_spec_verify_program(model, *, draft_k, weight_dtype=None,
+                              int8_weights=None, greedy=True,
                               temperature=1.0, top_k=0, graph_pool=None):
     """The target's verification (``generation.py:729`` of the
     reference): ``[last_tok, d_0 .. d_{K-1}]`` in ONE (R, K+1) paged
@@ -546,19 +734,22 @@ def paged_spec_verify_program(model, *, draft_k, greedy=True,
     outputs: their addresses are part of the key). The forward writes
     K+1 rows per lane at ``positions + [0 .. K]``; rows past the
     accepted ones are masked by length until the next round writes them
-    again, so a rollback is just not advancing ``positions``."""
+    again, so a rollback is just not advancing ``positions``.
+    ``weight_dtype`` / ``int8_weights`` as :func:`paged_decode_program`'s
+    (the draft program never takes them, as the reference's)."""
     kk = int(draft_k)
     if kk < 1:
         raise MXNetError(f"draft_k must be >= 1, got {kk}")
+    tree = _resolve_weights(model, weight_dtype, int8_weights)
 
     def body(last_tok, draft_toks, draft_logits, pool_k, pool_v,
              block_table, positions, generator):
         with torch.no_grad():
             tokens = torch.cat([last_tok.to(torch.int32),
                                 draft_toks.to(torch.int32)], dim=1)
-            logits, pool_k, pool_v = model.decode_step_paged(
-                tokens, pool_k, pool_v, block_table,
-                positions.to(torch.int32))
+            logits, pool_k, pool_v = _with_weights(
+                model, tree, model.decode_step_paged, tokens, pool_k,
+                pool_v, block_table, positions.to(torch.int32))
             out, n_acc = _spec_accept(logits.float(), draft_logits,
                                       draft_toks, generator, greedy,
                                       temperature, top_k)
@@ -566,5 +757,5 @@ def paged_spec_verify_program(model, *, draft_k, greedy=True,
 
     return GraphedProgram(
         "llm.verify", body, (0, 5, 6),
-        (id(model), kk, bool(greedy), float(temperature), int(top_k)),
-        not greedy, graph_pool)
+        (id(model), kk, bool(greedy), float(temperature), int(top_k),
+         weight_dtype, _weights_key(tree)), not greedy, graph_pool)

@@ -250,7 +250,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     metric, CTCLoss, and an Updater's state blob round trip; the BERT
     builders and every vision module import, a tiny BERTForPretraining
     runs with a valid_length, and resnet18_v1(pretrained=True)
-    generates the model store's weights to the manifest's hash."""
+    generates the model store's weights to the manifest's hash; the
+    serving options' modules (the quantizer, telemetry, resilience, the
+    manifest, the codec, the blob store, the spill tier) import, and an
+    int8-weight engine with the host and disk spill tiers serves a
+    session that is evicted and re-attached, with a trace id, a step
+    hook and a saved warmup manifest, and beam_search runs."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -369,6 +374,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " device='cpu')\n"
         "    assert model_store._file_sha256(model_store.get_model_file("
         "'resnet18_v1', root)) == model_store._MODEL_SHA256['resnet18_v1']\n"
+        "from mxnet_tpu_torch import aot, contrib, io, resilience, telemetry\n"
+        "from mxnet_tpu_torch.serving import kv_codec, kv_spill\n"
+        "from mxnet_tpu_torch.gluon.model_zoo.generation import beam_search\n"
+        "ticks = []\n"
+        "with tempfile.TemporaryDirectory() as spill_dir:\n"
+        "    with LLMEngine(net, device='cpu', max_running=2, block_size=4,"
+        " max_context=24, num_blocks=8, weight_dtype='int8',"
+        " prefix_cache=True, kv_spill=True, kv_spill_bytes=2048,"
+        " kv_spill_dir=spill_dir, step_hook=lambda: ticks.append(1)) as eng:\n"
+        "        sess = np.arange(1, 13) % 41\n"
+        "        first = eng.generate(sess, 3, trace_id='t-guard')\n"
+        "        for s in range(3):\n"
+        "            eng.generate((np.arange(12) * (s + 2) + 1) % 41, 1)\n"
+        "        again = eng.generate(sess, 3)\n"
+        "        st = eng.stats()\n"
+        "        eng.save_warmup_manifest(spill_dir + '/m.json')\n"
+        "    assert (first == again).all() and ticks\n"
+        "    assert st['kv_spill']['reattach_bytes'] > 0\n"
+        "    assert st['kv_spill']['demoted_to_disk'] > 0\n"
+        "    assert aot.WarmupManifest.load(spill_dir + '/m.json').entries()\n"
+        "assert 'llm_kv_reattach_total' in telemetry.prometheus_text()\n"
+        "seqs, scores = beam_search(net, np.array([[1, 2, 3]]), 3,"
+        " beam_size=2, weight_dtype='int8', device='cpu')\n"
+        "assert seqs.shape == (1, 2, 3) and torch.isfinite(scores).all()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
