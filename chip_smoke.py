@@ -14,6 +14,7 @@ NVIDIA H100.
     python3 chip_smoke.py --zoo        # phases 1, 2 and 12 only (no
                                        # result)
     python3 chip_smoke.py --options    # phases 1 and 13 only (no result)
+    python3 chip_smoke.py --graphtrain # phases 1 and 14 only (no result)
     python3 chip_smoke.py --serve-ab=A,B,B,A [--rounds=20]
                                        # phase 3's workload on the
                                        # engine of each tree listed
@@ -241,6 +242,30 @@ Phases (each asserts; any failure exits non-zero before the result line):
    captures nothing new. Last, one in-place SGD step
    (:func:`options_sgd`): ``generate(weight_dtype="int8")`` quantizes
    once over two calls and follows the new weights.
+14. The compiled training step (:func:`graphtrain_phase`), under
+   ``default``: a hybridized block under ``autograd.record()`` records
+   one node whose forward and backward replay CUDA graphs, and the
+   Trainer's update replays one graph over device scalars. Every
+   fusable optimizer's captured update (3 steps, the rate halving each
+   step, bf16 masters for multi-precision SGD) bitwise equal to its
+   eager one (:func:`gt_optimizers`); a small MLP's recorded node
+   (a ``grad_req="add"`` weight over two backwards, an input's
+   gradient, two calls of a key pending at once, the second's pair
+   dropped after its backward) bitwise eager (:func:`gt_node_semantics`). ResNet-50 v1 (B 32, 224x224, phase
+   11's NAG loop, shapes by ``infer_shape``) and BERT-base (B 32, L
+   128, the MLM loss, SGD) each train 3 steps eager, eager again and
+   graphed from one seed: weights and BatchNorm statistics bitwise
+   where the two eager runs are, else in norm; launches per replayed
+   step exact (ResNet K3 1; BERT K1 forward, K1c, K1d 12 each, K2 26,
+   K3 1); then 10 timed and 2 profiled steps print step ms (median,
+   range), device ms, busy share, launches outside graphs, captures
+   and peak memory (:func:`gt_train`). BERT with dropout 0.1: replays
+   draw new masks and the loss follows eager's.
+   ``torch.func.grad`` of BERT's ``functionalize`` fn against autograd
+   and ``vmap`` of it over 2 x B4 (:func:`gt_torch_func`). BERT with
+   every ``grad_req`` "add", two recorded micro-batches of B 16 and
+   one step: gradients and weights bitwise eager
+   (:func:`gt_accumulate`).
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -2737,8 +2762,9 @@ def resnet_train(torch, net, weights, x, y, card, wrappers, macs, policy,
     BatchNorm statistics) move in the forward and not in the Trainer's
     step. Then RN_STEPS timed steps: the loss falls below the warm-up's,
     every running statistic has moved from its seeded value, the
-    hybridized block replays no graph while recording, and the only
-    kernel of the port launched is K3, once per step (the loss)."""
+    hybridized block replays its recorded forward and backward graphs
+    once a step (the warm-up step captured them), and the only kernel of
+    the port launched is K3, once per step (the loss)."""
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.convert import from_jax_params
     from mxnet_tpu_torch.gluon import Trainer
@@ -2767,8 +2793,8 @@ def resnet_train(torch, net, weights, x, y, card, wrappers, macs, policy,
         trainer.step(RN_B)
         return loss
 
-    graphs = (net.captures, net.replays)
     first = forward_backward().mean().item()          # the warm-up step
+    graphs = (net.captures, net.replays)
     moved = {n: p.data().clone() for n, p in stats.items()}
     trainer.step(RN_B)
     check(all(torch.equal(p.data(), moved[n]) for n, p in stats.items()),
@@ -2795,8 +2821,9 @@ def resnet_train(torch, net, weights, x, y, card, wrappers, macs, policy,
           f"non-finite loss {first} {losses}")
     check(losses[-1] < first, f"loss did not fall: {first} -> {losses}")
     check(counts == want, f"ResNet train launches {counts} != {want}")
-    check((net.captures, net.replays) == graphs,
-          "a graph replayed while recording")
+    check((net.captures, net.replays) == (graphs[0], graphs[1] + RN_STEPS),
+          f"recorded graphs {graphs} -> {(net.captures, net.replays)} "
+          f"over {RN_STEPS} steps")
     still = [n for n, p in stats.items()
              if torch.equal(p.data().cpu(), torch.from_numpy(weights[n]))]
     check(not still, f"running statistics that did not move: {still[:4]}")
@@ -5456,6 +5483,558 @@ def k5b_landing(torch, res, a5, wo5):
     return out
 
 
+# -- phase 14: the compiled training step ------------------------------------
+# the reference runs a hybridized block under autograd.record() as a
+# compiled forward and backward, and the Trainer's update as one program;
+# here they are CUDA graphs. Each model trains GT_STEPS steps eager
+# (inside _graphs_off()), eager again (are the kernels deterministic?) and
+# graphed, from the same seed; then GT_TIMED more steps are timed in
+# each mode. Where the two eager runs agree bitwise the graphed one must
+# too; otherwise each parameter's change over the steps is held in norm
+# to GT_NORM_TOL (phase 9's limit of the card against the CPU)
+GT_STEPS, GT_TIMED, GT_PROFILED = 3, 10, 2
+GT_NORM_TOL = RN_CPU_GRAD_TOL
+GT_DROPOUT = 0.1
+# BERT's losses with dropout 0.1, graphed against eager: other masks, the
+# same distribution; each step's mean loss within 5% of eager's
+GT_DROPOUT_TOL = 5e-2
+# torch.func against autograd on the card: the same kernels in the same
+# order (1e-5 of each gradient's norm); vmap's folded batch against
+# per-slice calls: cuBLAS may take other algorithms at the folded shapes
+# (1e-4 of the logits' largest magnitude)
+GT_FUNC_TOL, GT_VMAP_TOL = 1e-5, 1e-4
+# every fusable optimizer: its variants of the CPU tests
+GT_OPTIMIZERS = [
+    ("sgd", {"momentum": 0.9}), ("sgd", {}), ("nag", {}), ("signum", {}),
+    ("signum", {"momentum": 0.0, "wd_lh": 0.01}),
+    ("dcasgd", {"momentum": 0.9}), ("lars", {}), ("adam", {}),
+    ("adam", {"correct_bias": False}), ("adamw", {}), ("adamax", {}),
+    ("adagrad", {}), ("adadelta", {}), ("rmsprop", {}),
+    ("rmsprop", {"centered": True, "clip_weights": 0.5}), ("ftrl", {}),
+    ("ftml", {}), ("lamb", {}),
+    ("lamb", {"bias_correction": False, "lower_bound": 0.5,
+              "upper_bound": 2.0}),
+    ("groupadagrad", {}), ("sgd", {"momentum": 0.9, "multi_precision": True})]
+GT_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernelEx")
+
+
+def gt_snapshot(net):
+    return {n: p.data().detach().clone()
+            for n, p in net.collect_params().items()}
+
+
+def gt_compare(torch, init, a, b):
+    """(bitwise-equal count, worst ||(b - init) - (a - init)|| / ||a -
+    init|| over the tensors that moved)."""
+    same, worst = 0, 0.0
+    for n in a:
+        same += int(torch.equal(a[n], b[n]))
+        da = (a[n] - init[n]).float()
+        nd = da.norm().item()
+        if nd > 0:
+            worst = max(worst, ((b[n] - init[n]).float() - da).norm().item()
+                        / nd)
+    return same, worst
+
+
+def gt_profile(torch, step, steps=GT_PROFILED):
+    """torch.profiler over ``steps`` steps: per step the kernel launches
+    made outside graphs (runtime launch calls), graph launches, memcpy
+    calls, device ms summed over every kernel and copy (a graph's
+    kernels included) and the profiled wall ms."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / steps
+    calls = Counter(e.name for e in prof.events()
+                    if e.device_type == DeviceType.CPU)
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation) / 1e3 / steps
+    return {"launches_outside_graphs": sum(calls[c] for c in
+                                           GT_LAUNCH_CALLS) / steps,
+            "graph_launches": calls["cudaGraphLaunch"] / steps,
+            "memcpy_calls": sum(v for k, v in calls.items()
+                                if k.startswith("cudaMemcpy")) / steps,
+            "device_ms": dev_ms, "profiled_wall_ms": wall}
+
+
+def gt_train(torch, card, wrappers, what, net, trainer_of, step_of, init,
+             want_launches):
+    """One model's three runs (eager, eager again, graphed) of GT_STEPS
+    steps from ``init``, then GT_TIMED timed and GT_PROFILED profiled
+    steps in each mode. ``trainer_of()`` makes a fresh Trainer,
+    ``step_of(trainer)`` a step function returning the loss. Checks the
+    weights (and BatchNorm statistics) after GT_STEPS steps, and in the
+    graphed mode the launches of ``want_launches`` per replayed step."""
+    from mxnet_tpu_torch.gluon.block import _graphs_off
+
+    dev = next(iter(init.values())).device
+    params = net.collect_params()
+    runs, out = {}, {"card": card}
+    for mode in ("eager", "eager again", "graphed"):
+        for n, p in params.items():
+            p.set_data(init[n])
+        net.zero_grad(set_to_none=True)
+        net.hybridize()
+        trainer = trainer_of()
+        step = step_of(trainer)
+        cap0 = (net.captures, trainer.captures)
+        with _graphs_off() if mode != "graphed" else nullcontext():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            losses = [step().mean().item() for _ in range(GT_STEPS)]
+            runs[mode] = gt_snapshot(net)
+            if mode == "eager again":
+                continue
+            for w in wrappers.values():
+                w.launches = 0
+            ms = []
+            for _ in range(GT_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            counts = {k: w.launches for k, w in wrappers.items()}
+            prof = gt_profile(torch, step)
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the profiler slows the host: the busy share is the profiled
+        # device ms over the unprofiled median step
+        prof["device_busy"] = prof["device_ms"] / float(np.median(ms))
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{what} {mode}: loss did not fall {losses}")
+        per_step = {k: v / GT_TIMED for k, v in counts.items() if v}
+        if mode == "graphed":
+            want = {k: v for k, v in want_launches.items() if v}
+            check(per_step == want, f"{what} graphed: launches per replayed "
+                  f"step {per_step} != {want}")
+            check(net.captures == cap0[0] + 1
+                  and trainer.captures == cap0[1] + 1,
+                  f"{what}: {net.captures - cap0[0]} block captures, "
+                  f"{trainer.captures - cap0[1]} update captures")
+        out[mode] = {
+            "losses": losses, "step_ms": ms,
+            "step_ms_median": float(np.median(ms)),
+            "step_ms_range": [min(ms), max(ms)], "launches_per_step":
+            per_step, "profile": prof, "max_memory_allocated": peak,
+            "captures": net.captures + trainer.captures,
+            "capture_s": net.capture_s + trainer.capture_s}
+        print(f"{what} on {card}, {mode}: loss {[round(v, 5) for v in losses]}"
+              f"; step ms over {GT_TIMED} steps median "
+              f"{out[mode]['step_ms_median']:.3f} range "
+              f"{min(ms):.3f}-{max(ms):.3f}; device ms "
+              f"{prof['device_ms']:.3f}, busy {prof['device_busy']:.3f}; "
+              f"kernel launches outside graphs per step "
+              f"{prof['launches_outside_graphs']:.1f}, graph launches "
+              f"{prof['graph_launches']:.1f}, memcpy calls "
+              f"{prof['memcpy_calls']:.1f}; port kernels per step "
+              f"{per_step}; captures {out[mode]['captures']} in "
+              f"{out[mode]['capture_s']:.3f} s; max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+    det_same, det_worst = gt_compare(torch, init, runs["eager"],
+                                     runs["eager again"])
+    same, worst = gt_compare(torch, init, runs["eager"], runs["graphed"])
+    n = len(runs["eager"])
+    deterministic = det_same == n
+    if deterministic:
+        check(same == n, f"{what}: the kernels are deterministic (two eager "
+              f"runs bitwise equal) but graphed differs in {n - same} of "
+              f"{n} tensors")
+    check(worst <= GT_NORM_TOL, f"{what}: graphed against eager {worst} > "
+          f"{GT_NORM_TOL}")
+    out["against_eager"] = {"tensors": n, "bitwise": same,
+                            "worst_rel_norm": worst,
+                            "eager_deterministic": deterministic,
+                            "eager_vs_eager_worst": det_worst}
+    print(f"{what}: after {GT_STEPS} steps graphed against eager: {same} of "
+          f"{n} tensors bitwise equal, worst change error in norm "
+          f"{worst:.3e} (limit {GT_NORM_TOL:g}); two eager runs: {det_same} "
+          f"bitwise equal ({'deterministic: bitwise required' if deterministic else 'nondeterministic kernels: held in norm'}"
+          f", worst {det_worst:.3e})", flush=True)
+    return out
+
+
+def gt_resnet(torch, card, wrappers):
+    """example/gluon/image_classification.py's loop on ResNet-50 v1 (B 32,
+    224x224, default policy): ``hybridize()``, ``autograd.record()``,
+    SoftmaxCrossEntropyLoss, ``Trainer("nag")`` with phase 11's
+    momentum, wd and MultiFactorScheduler; the shapes completed by
+    ``infer_shape``; K3 once a step and nothing else of the port."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.optimizer.lr_scheduler import MultiFactorScheduler
+
+    dev = mx.context.resolve_device(None)
+    net = vision.get_model("resnet50_v1", classes=RN_CLASSES)
+    net.initialize()
+    rng = np.random.default_rng(SEED + 14)
+    x = torch.from_numpy(rng.random((RN_B, 3, RN_HW, RN_HW),
+                                    dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, RN_CLASSES, RN_B)).to(dev)
+    shape = net.infer_shape(x)
+    check(shape == (RN_B, RN_CLASSES)
+          and all(p.initialized for p in net.collect_params().values()),
+          f"infer_shape: {shape}")
+    from_jax_params(resnet_weights(net, SEED), net)
+    init = gt_snapshot(net)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def trainer_of():
+        return Trainer(net.collect_params(), "nag", dict(
+            FRONT_NAG, lr_scheduler=MultiFactorScheduler(**FRONT_SCHEDULE)))
+
+    def step_of(trainer):
+        def step():
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            autograd.backward(loss)
+            trainer.step(RN_B)
+            return loss.detach()
+        return step
+
+    want = dict({k: 0 for k in wrappers}, cross_entropy_lse=1)
+    with matmul_precision_scope("default"):
+        out = gt_train(torch, card, wrappers, "resnet50_v1 B32 224x224 NAG",
+                       net, trainer_of, step_of, init, want)
+    out["infer_shape"] = list(shape)
+    return out
+
+
+def gt_bert(torch, card, wrappers):
+    """BERT-base pretraining at train_bench.py's settings (B 32, L 128,
+    the MLM loss, SGD momentum 0.9, lr 0.05) hybridized, default policy:
+    with dropout 0.0 the three runs of :func:`gt_train` and K1 forward,
+    K1c and K1d 12 each, K2 26 and K3 once per replayed step; with
+    dropout GT_DROPOUT, two replays of the recorded forward draw other
+    masks (no new capture), and GT_STEPS graphed steps' losses follow
+    eager's within GT_DROPOUT_TOL."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.block import _graphs_off
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTForPretraining,
+                                                      bert_base)
+
+    dev = mx.context.resolve_device(None)
+    mx.np.random.seed(SEED)
+    net = BERTForPretraining(bert_base(dropout=0.0))
+    net.initialize()
+    init = gt_snapshot(net)
+    tokens, types, _ = bert_batch(torch, dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def trainer_of(model=net):
+        return Trainer(model.collect_params(), "sgd",
+                       {"learning_rate": 0.05, "momentum": 0.9})
+
+    def step_of(trainer, model=net):
+        def step():
+            with autograd.record():
+                mlm, _ = model(tokens, types)
+                loss = loss_fn(mlm, tokens)
+            autograd.backward(loss)
+            # eager leaves the NSP head and the pooler without a gradient
+            # (the graph gives them zeros, which move nothing)
+            trainer.step(BERT_B, ignore_stale_grad=True)
+            return loss.detach()
+        return step
+
+    with matmul_precision_scope("default"):
+        out = gt_train(torch, card, wrappers, "BERT-base B32 L128 SGD", net,
+                       trainer_of, step_of, init, BERT_TRAIN_LAUNCHES)
+        out["torch_func"] = gt_torch_func(torch, net, tokens, types,
+                                          wrappers)
+        out["accumulate"] = gt_accumulate(torch, card, net, init, tokens,
+                                          types, loss_fn, trainer_of)
+        del net
+        torch.cuda.empty_cache()
+        drop = BERTForPretraining(bert_base(dropout=GT_DROPOUT))
+        drop.initialize()
+        for n, p in drop.collect_params().items():
+            p.set_data(init[n])
+        drop.hybridize()
+        # two recorded calls on the same weights: other masks
+        cap = drop.captures
+        outs = []
+        for _ in range(3):
+            with autograd.record():
+                mlm, _ = drop(tokens, types)
+                loss = loss_fn(mlm, tokens)
+            autograd.backward(loss)
+            outs.append(mlm.detach())
+        drop.zero_grad(set_to_none=True)
+        check(drop.captures == cap + 1 and drop.replays == 3,
+              f"dropout calls: {drop.captures - cap} captures, "
+              f"{drop.replays} replays")
+        check(not torch.equal(outs[1], outs[2])
+              and not torch.equal(outs[0], outs[1]),
+              "two replays of the dropout forward drew the same masks")
+        losses = {}
+        for mode in ("eager", "graphed"):
+            for n, p in drop.collect_params().items():
+                p.set_data(init[n])
+            drop.hybridize()
+            step = step_of(trainer_of(drop), drop)
+            with _graphs_off() if mode == "eager" else nullcontext():
+                losses[mode] = [step().mean().item()
+                                for _ in range(GT_STEPS)]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(losses["eager"],
+                                                      losses["graphed"]))
+        check(all(l[-1] < l[0] for l in losses.values())
+              and rel <= GT_DROPOUT_TOL,
+              f"dropout {GT_DROPOUT}: losses {losses} (rel {rel})")
+    out["dropout"] = {"rate": GT_DROPOUT, "losses": losses, "worst_rel": rel}
+    print(f"BERT-base with dropout {GT_DROPOUT} on {card}: two replays of the "
+          f"recorded forward draw other masks (no new capture); loss over "
+          f"{GT_STEPS} steps eager {[round(v, 5) for v in losses['eager']]}, "
+          f"graphed {[round(v, 5) for v in losses['graphed']]} (worst "
+          f"{rel:.3e} apart, limit {GT_DROPOUT_TOL:g})", flush=True)
+    return out
+
+
+def gt_accumulate(torch, card, net, init, tokens, types, loss_fn,
+                  trainer_of):
+    """BERT-base with every parameter's ``grad_req`` "add": two recorded
+    micro-batches of BERT_B // 2 (one key, so the second call's forward
+    replays the graph pair whose backward wrote the first call's
+    gradients, which ``.grad`` still holds), then one Trainer step;
+    eager against graphed, the summed gradients and the weights after
+    the step bitwise."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.block import _graphs_off
+
+    params = net.collect_params()
+    half = BERT_B // 2
+    got = {}
+    for mode in ("eager", "graphed"):
+        for n, p in params.items():
+            p.set_data(init[n])
+            p.grad_req = "add"
+        net.zero_grad(set_to_none=True)
+        net.hybridize()
+        trainer = trainer_of()
+        with _graphs_off() if mode == "eager" else nullcontext():
+            for k in range(2):
+                t = tokens[k * half:(k + 1) * half]
+                with autograd.record():
+                    mlm, _ = net(t, types[k * half:(k + 1) * half])
+                    loss = loss_fn(mlm, t)
+                autograd.backward(loss)
+            grads = {n: p.data().grad.clone()
+                     for n, p in params.items()
+                     if p.data().grad is not None}
+            trainer.step(BERT_B, ignore_stale_grad=True)
+        got[mode] = (grads, gt_snapshot(net), net.captures)
+    for p in params.values():
+        p.grad_req = "write"
+    net.zero_grad(set_to_none=True)
+    (ge, we, _), (gg, wg, captures) = got["eager"], got["graphed"]
+    # eager leaves the NSP head and the pooler without a gradient, the
+    # graph gives them zeros
+    grads_same = sum(int(torch.equal(ge[n], gg[n])) for n in ge)
+    extra = [n for n in gg if n not in ge and bool(gg[n].any())]
+    weights_same = sum(int(torch.equal(we[n], wg[n])) for n in we)
+    check(grads_same == len(ge) and not extra and weights_same == len(we)
+          and captures == 1,
+          f"grad_req='add' over two micro-batches: {grads_same} of "
+          f"{len(ge)} gradients and {weights_same} of {len(we)} weights "
+          f"bitwise eager's, nonzero where eager has none {extra[:3]}, "
+          f"{captures} captures")
+    print(f"BERT-base grad_req='add' on {card}: two recorded micro-batches "
+          f"of {half} (one graph pair) then one step: {grads_same} of "
+          f"{len(ge)} summed gradients and {weights_same} of {len(we)} "
+          f"weights bitwise equal to eager", flush=True)
+    return {"gradients": len(ge), "gradients_bitwise": grads_same,
+            "weights": len(we), "weights_bitwise": weights_same}
+
+
+def gt_torch_func(torch, net, tokens, types, wrappers):
+    """``torch.func.grad`` of the MLM loss over BERT's ``functionalize``
+    fn on the card against autograd's gradients through the same fn (K1
+    forward, K1c, K1d 12 each), and ``torch.func.vmap`` of fn over a
+    leading axis of 2 batches of 4 against per-batch calls."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    fn, params = net.functionalize(tokens, types)
+
+    def loss(p):
+        return loss_fn(fn(p, tokens, types)[0][0], tokens).mean()
+
+    for w in wrappers.values():
+        w.launches = 0
+    got = torch.func.grad(loss)(params)
+    counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+    given = {n: t.clone().requires_grad_() for n, t in params.items()}
+    # the NSP head and the pooler take no part in the MLM loss:
+    # torch.func.grad gives them zeros, autograd None
+    want = {n: torch.zeros_like(given[n]) if g is None else g
+            for n, g in zip(given, torch.autograd.grad(
+                loss(given), list(given.values()), allow_unused=True))}
+    worst = max((got[n] - want[n]).norm().item()
+                / max(want[n].norm().item(), 1e-30) for n in want)
+    check(worst <= GT_FUNC_TOL, f"torch.func.grad vs autograd {worst}")
+    check(counts.get("flash_attention_fwd") == 12
+          and counts.get("flash_attention_bwd_dq") == 12
+          and counts.get("flash_attention_bwd_dkv") == 12,
+          f"torch.func.grad launches {counts}")
+    t4, y4 = tokens[:8].reshape(2, 4, -1), types[:8].reshape(2, 4, -1)
+    mapped = torch.func.vmap(lambda t, y: fn(params, t, y)[0][0])(t4, y4)
+    each = torch.stack([fn(params, t, y)[0][0] for t, y in zip(t4, y4)])
+    verr = ((mapped - each).abs().max() / each.abs().max()).item()
+    check(verr <= GT_VMAP_TOL, f"torch.func.vmap vs per-batch {verr}")
+    print(f"torch.func on the card: grad of BERT's functionalize fn against "
+          f"autograd, worst {worst:.3e} of a gradient's norm (limit "
+          f"{GT_FUNC_TOL:g}), launches {counts}; vmap over 2 x B4 against "
+          f"per-batch calls {verr:.3e} of the largest logit (limit "
+          f"{GT_VMAP_TOL:g})", flush=True)
+    return {"grad_worst": worst, "grad_launches": counts, "vmap_err": verr}
+
+
+def gt_optimizers(torch, card):
+    """Each of GT_OPTIMIZERS in two Trainers over gpt_like's (32000, 768)
+    embedding and a (768,) bias (bfloat16 with float32 masters for the
+    multi-precision SGD; GroupAdaGrad the embedding alone), 3 steps from
+    one set of seeded weights and gradients under a FactorScheduler that
+    halves the rate each step (wd 1e-2 but GroupAdaGrad's 0, clip 1.0):
+    the graphed Trainer's update (step 1 eager and captured, 2 and 3
+    replayed) bitwise equal to the eager one's (inside _graphs_off), the
+    weights and every state tensor."""
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.block import _graphs_off
+    from mxnet_tpu_torch.gluon.parameter import Parameter
+    from mxnet_tpu_torch.optimizer.lr_scheduler import FactorScheduler
+
+    rng = np.random.default_rng(SEED + 141)
+    shapes = [(CFG["vocab_size"], CFG["units"]), (CFG["units"],)]
+    weights = [rng.standard_normal(s, dtype=np.float32) * np.float32(0.02)
+               for s in shapes]
+    grads = [[rng.standard_normal(s, dtype=np.float32) for s in shapes]
+             for _ in range(3)]
+    dev = torch.device("cuda", 0)
+    rows = []
+    for name, kw in GT_OPTIMIZERS:
+        n = 1 if name == "groupadagrad" else 2
+        half = kw.get("multi_precision", False)
+        kw = dict(kw, clip_gradient=1.0, learning_rate=0.1,
+                  wd=0.0 if name == "groupadagrad" else 1e-2)
+        runs = []
+        for graphed in (True, False):
+            ps = []
+            for i, w in enumerate(weights[:n]):
+                p = Parameter(f"p{i}", shape=w.shape)
+                p.set_data(torch.from_numpy(w), device=dev)
+                if half:
+                    p.cast("bfloat16")
+                ps.append(p)
+            tr = Trainer(ps, name, dict(kw, lr_scheduler=FactorScheduler(
+                step=1, factor=0.5, base_lr=0.1)))
+            with nullcontext() if graphed else _graphs_off():
+                for g in grads:
+                    for p, gk in zip(ps, g):
+                        p.data().grad = torch.from_numpy(gk).to(
+                            dev, p.data().dtype)
+                    tr.step(1)
+            runs.append((tr, [p.data().detach() for p in ps]))
+        (tg, wg), (te, we) = runs
+        same = all(torch.equal(a, b) for a, b in zip(wg, we)) and all(
+            states_equal(torch, tg._states[i], te._states[i])
+            for i in te._states)
+        check(same, f"{name} {kw}: graphed update differs from eager")
+        check(tg.captures == 1 and tg.replays == 2 and te.captures == 0,
+              f"{name}: captures {tg.captures} replays {tg.replays}")
+        rows.append(name + "".join(f" {k}={v}" for k, v in kw.items()
+                                   if k not in ("clip_gradient", "wd",
+                                                "learning_rate")))
+    print(f"every fusable optimizer on {card}: the Trainer's captured update "
+          f"(one graph a step, lr, rescale_grad and t as device scalars) "
+          f"bitwise equal to its eager update over 3 steps with the rate "
+          f"halving each step: {rows}", flush=True)
+    return rows
+
+
+def gt_node_semantics(torch, card):
+    """The recorded node's gradient semantics on the card, a small MLP
+    (Dense 256 relu, Dense 10) eager against graphed, bitwise: a
+    ``grad_req="add"`` weight summing two backwards, an input's
+    gradient (its call is a key of its own), and two calls of another
+    key before their backwards (the second takes its own graph pair,
+    dropped after its backward: 3 pairs captured, 2 kept, each key's
+    first reused by the next calls)."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    dev = torch.device("cuda", 0)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(256, activation="relu", in_units=64), nn.Dense(10))
+    net.initialize(device=dev)
+    net[0].weight.grad_req = "add"
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 142)
+    xs = [torch.randn(32, 64, generator=g, device=dev) for _ in range(2)]
+    got = []
+    for active in (False, True):
+        net.hybridize(active)
+        net.zero_grad(set_to_none=True)
+        xin = xs[0].clone().requires_grad_()
+        with autograd.record():
+            a = net(xin).square().sum()
+            b = net(xs[1]).square().sum()
+            b2 = net(xs[0]).square().sum()
+        autograd.backward([a, b, b2])
+        with autograd.record():
+            c = net(xin).square().sum()
+            d = net(xs[1]).square().sum()
+        autograd.backward([c, d])
+        got.append(({n: p.grad().clone() for n, p in
+                     net.collect_params().items()}, xin.grad.clone()))
+    (ge, xe), (gg, xg) = got
+    check(all(torch.equal(ge[n], gg[n]) for n in ge) and torch.equal(xe, xg),
+          "the recorded node's gradients differ from eager")
+    pairs = sum(len(v) for v in net._train_graphs.values())
+    check(net.captures == 3 and pairs == 2,
+          f"two pending calls of a key: {net.captures} captures, {pairs} "
+          "pairs kept")
+    print(f"recorded node on {card}: a grad_req='add' weight over two "
+          "backwards, an input's gradient and two calls of a key pending "
+          "at once (3 graph pairs captured, the extra one dropped after "
+          "its backward) bitwise equal to eager", flush=True)
+    return {"captures": net.captures}
+
+
+def graphtrain_phase(torch, card, wrappers):
+    """Phase 14: the compiled training step (:func:`gt_optimizers`,
+    :func:`gt_node_semantics`, :func:`gt_resnet`, :func:`gt_bert` with
+    :func:`gt_torch_func` and :func:`gt_accumulate`)."""
+    t_phase = time.perf_counter()
+    out = {"optimizers": gt_optimizers(torch, card),
+           "node": gt_node_semantics(torch, card)}
+    torch.cuda.empty_cache()
+    out["resnet"] = gt_resnet(torch, card, wrappers)
+    torch.cuda.empty_cache()
+    out["bert"] = gt_bert(torch, card, wrappers)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14 took {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
 def main(argv):
     import torch
 
@@ -5541,6 +6120,12 @@ def main(argv):
         write_results(results)
         print("chip_smoke --spec: phases 1, 2 at the spec shapes and 10 "
               "passed")
+        return 0
+    if "--graphtrain" in argv:   # phases 1 and 14 only: no result line
+        results["graphtrain"] = graphtrain_phase(torch, card,
+                                                 kernel_wrappers())
+        write_results(results)
+        print("chip_smoke --graphtrain: phases 1 and 14 passed")
         return 0
     if "--options" in argv:      # phases 1 and 13 only: no result line
         results["options"] = options_phase(torch, card, kernel_wrappers())
@@ -5803,6 +6388,10 @@ def main(argv):
     # -- phase 13: LLMEngine's single-engine options ----------------------
     torch.cuda.empty_cache()
     results["options"] = options_phase(torch, card, wrappers)
+
+    # -- phase 14: the compiled training step -------------------------------
+    torch.cuda.empty_cache()
+    results["graphtrain"] = graphtrain_phase(torch, card, wrappers)
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

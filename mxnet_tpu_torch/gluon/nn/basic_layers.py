@@ -1,8 +1,9 @@
 """Basic layers of the PyTorch port (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
-``HybridSequential``, ``HybridConcatenate``, ``Dense``, ``Dropout``,
-``Activation``, ``Embedding``, ``Flatten``, ``Identity``, ``Lambda``
-and ``HybridLambda``, on the port's
+``HybridSequential``, ``Concatenate``, ``HybridConcatenate``,
+``Dense``, ``Dropout``, ``Activation``, ``LeakyReLU``, ``PReLU``,
+``ELU``, ``SELU``, ``GELU``, ``SiLU``, ``Swish``, ``Embedding``,
+``Flatten``, ``Identity``, ``Lambda`` and ``HybridLambda``, on the port's
 :class:`~..block.Block` and :class:`~..parameter.Parameter`. Parameter
 names and layouts are the reference's (``Dense.weight`` is
 (units, in_units)), and ``Dense`` without ``in_units`` completes its
@@ -12,14 +13,18 @@ from __future__ import annotations
 
 import math
 
+import torch
+
+from ... import initializer as init_mod
 from ... import numpy as np
 from ... import numpy_extension as npx
 from ..block import Block, HybridBlock
 from ..parameter import Parameter
 
-__all__ = ["Sequential", "HybridSequential", "HybridConcatenate", "Dense",
-           "Dropout", "Activation", "Embedding", "Flatten", "Identity",
-           "Lambda", "HybridLambda"]
+__all__ = ["Sequential", "HybridSequential", "Concatenate",
+           "HybridConcatenate", "Dense", "Dropout", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "GELU", "SiLU", "Swish",
+           "Embedding", "Flatten", "Identity", "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -59,8 +64,22 @@ class Sequential(Block):
 
 
 class HybridSequential(Sequential, HybridBlock):
-    """Sequential of hybrid blocks (reference HybridSequential); runs
-    eagerly, as every HybridBlock of the port."""
+    """Sequential of hybrid blocks (reference HybridSequential); after
+    ``hybridize()`` it replays CUDA graphs as every HybridBlock of the
+    port."""
+
+
+class Concatenate(Sequential):
+    """Runs every child on the same input and concatenates their outputs
+    along ``axis`` (reference basic_layers.py:281)."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return np.concatenate([block(x) for block in self._modules.values()],
+                              axis=self.axis)
 
 
 class HybridConcatenate(HybridSequential):
@@ -71,9 +90,7 @@ class HybridConcatenate(HybridSequential):
         super().__init__()
         self.axis = axis
 
-    def forward(self, x):
-        return np.concatenate([block(x) for block in self._modules.values()],
-                              axis=self.axis)
+    forward = Concatenate.forward
 
 
 class Dense(HybridBlock):
@@ -146,6 +163,81 @@ class Activation(HybridBlock):
 
     def extra_repr(self):
         return self._act_type
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` if ``x >= 0`` else ``alpha * x`` (reference
+    basic_layers.py:165)."""
+
+    def __init__(self, alpha=0.01):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return npx.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope per channel, ``alpha`` of shape
+    ``(in_channels,)`` (reference basic_layers.py:175)."""
+
+    def __init__(self, alpha_initializer=init_mod.Constant(0.25),
+                 in_channels=1):
+        super().__init__()
+        self.alpha = Parameter("alpha", shape=(in_channels,),
+                               init=alpha_initializer)
+
+    def forward(self, x):
+        return npx.leaky_relu(x, gamma=self.alpha.data(), act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``x`` if ``x >= 0`` else ``alpha * (exp(x) - 1)`` (reference
+    basic_layers.py:184)."""
+
+    def __init__(self, alpha=1.0):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return npx.leaky_relu(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Self-normalizing ELU (reference basic_layers.py:193)."""
+
+    def forward(self, x):
+        return npx.leaky_relu(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU, the erf form unless ``approximation="tanh"`` (reference
+    basic_layers.py:199)."""
+
+    def __init__(self, approximation="erf"):
+        super().__init__()
+        self._approx = approximation
+
+    def forward(self, x):
+        return npx.gelu(x, approximate=self._approx == "tanh")
+
+
+class SiLU(HybridBlock):
+    """``x * sigmoid(x)`` (reference basic_layers.py:208)."""
+
+    def forward(self, x):
+        return npx.activation(x, act_type="silu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)`` (reference basic_layers.py:214)."""
+
+    def __init__(self, beta=1.0):
+        super().__init__()
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)
 
 
 class Embedding(HybridBlock):

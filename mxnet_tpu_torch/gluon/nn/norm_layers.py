@@ -6,11 +6,12 @@ torch), ``SyncBatchNorm`` (``BatchNorm`` on one card) and
 ``BatchNormReLU``; ``LayerNorm`` (``gamma`` and ``beta``, through
 :func:`~...ops.nn.layer_norm`, the K2 kernel on the card) and ``RMSNorm``
 (``gamma``, through :func:`~...ops.nn.rms_norm`, the K2r kernel on the
-card). Without ``in_channels`` the parameters take the normalized axis's
-width at the first forward. BatchNorm's running statistics are
-Parameters with ``grad_req="null"`` that a training forward updates in
-place (the reference's aux states); the Trainer skips them.
-``GroupNorm`` and ``InstanceNorm`` are not ported yet.
+card), ``GroupNorm`` and ``InstanceNorm`` (``gamma`` and ``beta`` per
+channel of axis 1, the reference's arithmetic in torch). Without
+``in_channels`` the parameters take the normalized axis's width at the
+first forward. BatchNorm's running statistics are Parameters with
+``grad_req="null"`` that a training forward updates in place (the
+reference's aux states); the Trainer skips them.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from ..block import HybridBlock
 from ..parameter import Parameter
 
 __all__ = ["BatchNorm", "SyncBatchNorm", "BatchNormReLU", "LayerNorm",
-           "RMSNorm"]
+           "RMSNorm", "GroupNorm", "InstanceNorm"]
 
 
 def _finalize(x, axis, *params):
@@ -150,3 +151,50 @@ class RMSNorm(HybridBlock):
 
     def extra_repr(self):
         return f"axis={self._axis}, eps={self._epsilon}"
+
+
+class GroupNorm(HybridBlock):
+    """Normalizes each sample's channel groups (reference
+    norm_layers.py:107, Wu & He 2018): ``gamma`` and ``beta`` per
+    channel of axis 1."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype="float32"):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        shape = (in_channels,) if in_channels else (0,)
+        self.gamma = Parameter("gamma", shape=shape, dtype=dtype,
+                               init=gamma_initializer,
+                               allow_deferred_init=True)
+        self.beta = Parameter("beta", shape=shape, dtype=dtype,
+                              init=beta_initializer, allow_deferred_init=True)
+
+    def forward(self, x):
+        _finalize(x, 1, self.gamma, self.beta)
+        return npx.group_norm(x, self.gamma.data(), self.beta.data(),
+                              num_groups=self._num_groups, eps=self._epsilon)
+
+
+class InstanceNorm(HybridBlock):
+    """Normalizes each sample's channels over the spatial axes
+    (reference norm_layers.py:131, Ulyanov et al.): ``gamma`` and
+    ``beta`` per channel of axis 1."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, dtype="float32"):
+        super().__init__()
+        self._epsilon = epsilon
+        shape = (in_channels,) if in_channels else (0,)
+        self.gamma = Parameter("gamma", shape=shape, dtype=dtype,
+                               init=gamma_initializer,
+                               allow_deferred_init=True)
+        self.beta = Parameter("beta", shape=shape, dtype=dtype,
+                              init=beta_initializer, allow_deferred_init=True)
+
+    def forward(self, x):
+        _finalize(x, 1, self.gamma, self.beta)
+        return npx.instance_norm(x, self.gamma.data(), self.beta.data(),
+                                 eps=self._epsilon)

@@ -32,7 +32,8 @@ from ..context import resolve_device
 from ..ndarray.ndarray import GRAD_REQS, from_numpy
 from .. import initializer as init_mod
 
-__all__ = ["Parameter", "Constant", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "DeferredInitializationError",
+           "substituted", "shapes_only"]
 
 
 class _Substitution(threading.local):
@@ -53,6 +54,27 @@ def substituted(pairs):
         yield
     finally:
         _subst.tensors = was
+
+
+class _ShapesOnly(threading.local):
+    on = False
+
+
+_shapes = _ShapesOnly()
+
+
+@contextmanager
+def shapes_only():
+    """Inside the scope (``HybridBlock.infer_shape``), on this thread,
+    :meth:`Parameter.data` returns a ``meta`` tensor of the parameter's
+    shape and dtype, and :meth:`Parameter.finalize` only keeps the shape
+    a layer set: nothing is made or drawn."""
+    was = _shapes.on
+    _shapes.on = True
+    try:
+        yield
+    finally:
+        _shapes.on = was
 
 
 class DeferredInitializationError(MXNetError):
@@ -204,7 +226,8 @@ class Parameter:
     def finalize(self):
         """Complete a deferred initialization once the shape is known
         (layers call it at their first forward)."""
-        if not self._ready and self._deferred_init is not None:
+        if (not self._ready and self._deferred_init is not None
+                and not _shapes.on):
             self._finish_deferred_init()
 
     # -- access ----------------------------------------------------------------
@@ -226,6 +249,12 @@ class Parameter:
         :func:`substituted` gives it."""
         if _subst.tensors is not None and self in _subst.tensors:
             return _subst.tensors[self]
+        if _shapes.on:
+            if not self.shape_known:
+                raise DeferredInitializationError(
+                    f"Parameter {self.name}: shape {self._shape} unknown")
+            return torch.empty(self._shape, dtype=self.dtype,
+                               device="meta")
         if not self._ready:
             self._check_initialized()
         return self._var

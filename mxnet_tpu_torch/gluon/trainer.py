@@ -12,7 +12,7 @@ clearing them makes the next backward write fresh gradients. After
 backward between raises. ``grad_req="add"`` gradients are kept (the
 caller zeroes them with ``zero_grad``).
 
-A step follows the reference's fused update (``trainer.py:316-371,
+A step follows the reference's fused update (``trainer.py:316-404,
 459-490``): every updated index's count advances first, then the
 learning rate is read once, rounded to float32, and the gradients are
 scaled by ``rescale_grad`` in float32. The per-index lr and wd
@@ -21,10 +21,29 @@ the set of updated indices changes), so ``set_lr_mult``/``set_wd_mult``
 after the first step do not reach it. Optimizers that are not
 ``fusable`` (SGLD, Nadam) take :meth:`Optimizer.update` per parameter
 instead, with the live multipliers, as the reference's eager path does.
+
+The fused update is one function of three 0-d device scalars, ``lr``
+(float32), ``rescale_grad`` (float32) and ``t`` (float64), the
+counterpart of the reference's ``fused(weights, grads, states, lr,
+rescale_grad, t)``: each step writes the current values into them and
+runs it. On a CUDA device it runs as ONE CUDA graph (the reference's
+one jitted program, ``_build_jit_step``): the first step of a key runs
+the function eagerly (its warm-up) and captures it, the later ones
+replay it. The key is the set of indices and the addresses of the
+weights, the optimizer states and the gradients, so a new index set, a
+``cast`` (new weight storage) or ``load_states`` (new state tensors)
+captures anew. The graph reads the gradients where they lay at capture:
+a hybridized block's backward graph writes them there every step (the
+reference's gradient buffers that "back the next backward"); a gradient
+found elsewhere (an eager backward's fresh tensor) is copied there
+first. Multi-precision masters are updated inside the same graph. On
+the CPU, and inside :func:`~.block._graphs_off`, the same function runs
+eagerly; its arithmetic is the graph's, bitwise.
 """
 from __future__ import annotations
 
 import pickle
+import time
 from typing import Dict, List
 
 import numpy as onp
@@ -33,6 +52,8 @@ import torch
 from .. import optimizer as opt_mod
 from ..base import MXNetError
 from ..optimizer.optimizer import to_device, to_host
+from ..telemetry import tracing
+from .block import _address, _graphs_on
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -40,6 +61,14 @@ __all__ = ["Trainer"]
 # kvstore names that mean one process on one card: the all-reduce is the
 # identity
 _LOCAL_STORES = (None, "device", "local", "none", "null")
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _leaves(x)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 class Trainer:
@@ -59,7 +88,8 @@ class Trainer:
     ``kvstore`` "device", "local", None, "none" or "null" is one process
     on one card (the all-reduce is the identity); a distributed store and
     any ``compression_params`` raise. ``update_on_kvstore`` is accepted:
-    with no store, the update runs here."""
+    with no store, the update runs here. ``captures``, ``replays`` and
+    ``capture_s`` count the fused update's CUDA graphs."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
@@ -96,6 +126,13 @@ class Trainer:
         # it is built
         self._fused_idxs: List[int] = []
         self._fused_mults: List[tuple] = []
+        # the fused update's device scalars (lr, rescale_grad, t) and its
+        # CUDA graph: (key, graph, the gradients it reads)
+        self._scalars = None
+        self._graph = None
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
 
     @property
     def optimizer(self):
@@ -157,20 +194,77 @@ class Trainer:
             self._fused_idxs = idxs
             self._fused_mults = [(opt.lr_mult_of(i), opt._get_wd(i))
                                  for i in idxs]
+            self._graph = None
         for i in idxs:
             opt._update_count(i)
         t = opt._index_update_count[idxs[0]]
-        lr = onp.float32(opt.learning_rate)
-        scale = float(onp.float32(opt.rescale_grad))
+        weights = [w for _, w in live]
+        states = [self._state(i, w) for i, w in live]
+        dev = weights[0].device
+        if self._scalars is None or self._scalars[0].device != dev:
+            self._scalars = (torch.zeros((), device=dev),
+                             torch.zeros((), device=dev),
+                             torch.zeros((), dtype=torch.float64,
+                                         device=dev))
+        lr, scale, step = self._scalars
+        lr.fill_(float(onp.float32(opt.learning_rate)))
+        scale.fill_(float(onp.float32(opt.rescale_grad)))
+        step.fill_(float(t))
+        grads = [w.grad for w in weights]
+        if dev.type != "cuda" or not _graphs_on():
+            self._fused(weights, grads, states)
+            return
+        key = (tuple(idxs), opt.clip_gradient,
+               tuple(_address(w) for w in weights),
+               tuple(_address(s) for s in _leaves(states)))
+        if self._graph is None or self._graph[0] != key:
+            self._capture(key, weights, grads, states)
+            return
+        _, graph, held = self._graph
+        for buf, g in zip(held, grads):
+            if _address(buf) != _address(g):
+                buf.copy_(g)
+        graph.replay()
+        self.replays += 1
+
+    def _fused(self, weights, grads, states):
+        """The fused update of every live index from the device scalars
+        (the reference's ``fused``; its graph when captured)."""
+        opt = self._optimizer
+        lr, scale, t = self._scalars
         clip = opt.clip_gradient
-        with torch.no_grad():
-            for (i, w), (lm, wd) in zip(live, self._fused_mults):
-                g = w.grad.to(torch.promote_types(w.grad.dtype,
-                                                  torch.float32)) * scale
+        rates = {}
+        with torch.no_grad(), opt.scalar_memo():
+            for w, g, st, (lm, wd) in zip(weights, grads, states,
+                                          self._fused_mults):
+                if lm not in rates:
+                    rates[lm] = lr if lm == 1.0 else lr * lm
+                g = g.to(torch.promote_types(g.dtype, torch.float32)) * scale
                 if clip is not None:
                     g = g.clamp_(-clip, clip)
-                opt.apply(w, g, self._state(i, w),
-                          float(lr * onp.float32(lm)), wd, t)
+                opt.apply(w, g, st, rates[lm], wd, t)
+
+    def _capture(self, key, weights, grads, states):
+        """The first step of a key: the update eagerly (which also warms
+        every kernel up), then its capture on a side stream, reading the
+        gradients at this step's addresses (held from now on)."""
+        from .model_zoo.generation import _capture_stream
+
+        t0 = time.perf_counter()
+        self._fused(weights, grads, states)
+        dev = weights[0].device
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self._fused(weights, grads, states)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._graph = (key, graph, list(grads))
+        dt = time.perf_counter() - t0
+        self.captures += 1
+        self.capture_s += dt
+        tracing.attribute("compile", dt)
 
     # -- optimizer-state checkpoint -----------------------------------------
     def states_tree(self) -> dict:
@@ -200,6 +294,7 @@ class Trainer:
         opt._index_update_count = {
             int(k): int(v) for k, v in tree["index_update_count"].items()}
         self._states = {int(i): canon(s) for i, s in tree["states"].items()}
+        self._graph = None
         for i in list(self._states):
             if self._params[i].initialized:
                 self._state(i, self._params[i].data())
@@ -208,6 +303,7 @@ class Trainer:
         """Forget all optimizer state and update counts; the next step
         creates them anew."""
         self._states = {}
+        self._graph = None
         self._optimizer.num_update = 0
         self._optimizer._index_update_count = {}
 

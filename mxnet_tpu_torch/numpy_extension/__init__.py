@@ -14,8 +14,9 @@ from ..autograd import is_training
 from ..ops import nn as _nn
 
 __all__ = ["fully_connected", "activation", "convolution", "deconvolution",
-           "pooling", "batch_norm", "layer_norm", "rms_norm", "softmax",
-           "log_softmax", "dropout", "embedding", "pick"]
+           "pooling", "batch_norm", "layer_norm", "rms_norm", "group_norm",
+           "instance_norm", "l2_normalization", "leaky_relu", "gelu",
+           "softmax", "log_softmax", "dropout", "embedding", "pick"]
 
 
 def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
@@ -82,6 +83,33 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
 
 def rms_norm(x, gamma, axis=-1, eps=1e-6):
     return _nn.rms_norm(x, gamma, axis=axis, eps=eps)
+
+
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    return _nn.group_norm(x, gamma, beta, num_groups=num_groups, eps=eps)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    return _nn.instance_norm(x, gamma, beta, eps=eps)
+
+
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    return _nn.l2_normalization(x, eps=eps, mode=mode)
+
+
+def leaky_relu(x, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """``rrelu`` draws its slopes while
+    :func:`~mxnet_tpu_torch.autograd.is_training`."""
+    return _nn.leaky_relu(x, gamma, act_type=act_type, slope=slope,
+                          lower_bound=lower_bound, upper_bound=upper_bound,
+                          training=is_training())
+
+
+def gelu(x, approximate=True):
+    """GELU, the tanh approximation unless ``approximate=False`` (the
+    reference's default)."""
+    return _nn.activation(x, "gelu_tanh" if approximate else "gelu")
 
 
 def softmax(x, axis=-1):

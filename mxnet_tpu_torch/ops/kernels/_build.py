@@ -29,7 +29,7 @@ from ...base import FatalError
 
 __all__ = ["KERNEL_SOURCES", "DTYPE_CODES", "dtype_code", "load",
            "build_all", "check", "stream_ptr", "build_log", "on_cpu",
-           "require", "refuse_grad", "COUNTED", "counted"]
+           "require", "refuse_grad", "batch_first", "COUNTED", "counted"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _SRC = _PKG / "csrc"
@@ -216,13 +216,15 @@ def stream_ptr(device: torch.device) -> int:
 
 def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
     """The wrappers' dispatch rule: True when every tensor lies on the
-    CPU (take the plain version), False when every tensor lies on one
-    CUDA device (launch the kernel); anything else raises."""
+    CPU (take the plain version), or on torch's ``meta`` device (the
+    plain version then computes shapes only: ``HybridBlock.infer_shape``),
+    False when every tensor lies on one CUDA device (launch the kernel);
+    anything else raises."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise FatalError(f"{what}: tensors on several devices {devs}")
     dev = devs.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return True
     if dev.type != "cuda":
         raise FatalError(f"{what}: no kernel for device {dev}")
@@ -242,6 +244,17 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
             f"{what}: an input requires grad and grad mode is on, but the "
             "kernel's output would carry no gradient; call it under "
             "torch.no_grad() or through its autograd entry point")
+
+
+def batch_first(info, in_dims, *tensors):
+    """The ``vmap`` rule's inputs with the mapped axis first: a mapped
+    tensor's moved to 0, an unmapped one expanded along a new axis 0 of
+    ``info.batch_size`` (the kernels' ``torch.autograd.Function``s fold
+    it into their rows or batch, so a vmapped call launches the same
+    kernel once)."""
+    return [t.movedim(d, 0) if d is not None
+            else t.unsqueeze(0).expand(info.batch_size, *t.shape)
+            for t, d in zip(tensors, in_dims)]
 
 
 def require(cond: bool, what: str, msg: str) -> None:

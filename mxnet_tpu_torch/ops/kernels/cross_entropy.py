@@ -66,16 +66,32 @@ def _nll(logits, lab, lse):
 
 
 class _CrossEntropy(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, logits, labels):
-        logits = logits.contiguous()
-        lse = fused_lse(logits)
-        lab = labels.long()
-        ctx.save_for_backward(logits, lab, lse)
-        return _nll(logits, lab, lse)
+    """K3 with the reference's ``_ce_bwd``. ``setup_context`` and
+    ``vmap`` let ``torch.func`` transform it; a vmapped call folds the
+    mapped axis into the rows (one launch)."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(logits, labels):
+        logits = logits.contiguous()
+        lse = fused_lse(logits)
+        return _nll(logits, labels.long(), lse), lse
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, labels = inputs
+        ctx.save_for_backward(logits.contiguous(), labels.long(), output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def vmap(info, in_dims, logits, labels):
+        logits, labels = _build.batch_first(info, in_dims, logits, labels)
+        b, n, v = logits.shape
+        nll, lse = _CrossEntropy.apply(logits.reshape(b * n, v),
+                                       labels.reshape(b * n))
+        return (nll.reshape(b, n), lse.reshape(b, n)), (0, 0)
+
+    @staticmethod
+    def backward(ctx, g, _glse):
         logits, lab, lse = ctx.saved_tensors
         # softmax from the saved lse, minus the one-hot, times g: built
         # in place in one f32 (N, V) buffer
@@ -95,7 +111,7 @@ def cross_entropy_with_logits(logits, labels):
     if logits.dim() != 2 or labels.dim() != 1:
         raise ValueError(f"expected (N, V) logits and (N,) labels, got "
                          f"{tuple(logits.shape)} / {tuple(labels.shape)}")
-    return _CrossEntropy.apply(logits, labels)
+    return _CrossEntropy.apply(logits, labels)[0]
 
 
 def cross_entropy_plain(logits, labels):

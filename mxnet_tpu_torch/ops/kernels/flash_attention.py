@@ -289,23 +289,75 @@ def flash_backward_dkv(q, k, v, g, lse, delta, causal=False,
     return dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        q, k, v = (t.contiguous() for t in (q, k, v))
-        out, lse = flash_forward(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return out
+class _FlashBackward(torch.autograd.Function):
+    """K1c then K1d, as one Function so that ``torch.func`` hands the
+    kernels plain tensors (its transforms run a Function's forward a
+    level below their own wrappers); it is not differentiable again."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(q, k, v, out, lse, g, causal, sm_scale):
+        dq, delta = flash_backward_dq(q, k, v, out, lse, g, causal,
+                                      sm_scale)
+        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, causal,
+                                    sm_scale)
+        return dq, dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention's backward is not "
+                           "differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, g, causal, sm_scale):
+        ts = _build.batch_first(info, in_dims[:6], q, k, v, out, lse, g)
+        b = ts[0].shape[0] * ts[0].shape[1]
+        grads = _FlashBackward.apply(
+            *(t.reshape(b, *t.shape[2:]).contiguous() for t in ts),
+            causal, sm_scale)
+        return (tuple(t.reshape(info.batch_size, -1, *t.shape[1:])
+                      for t in grads), (0, 0, 0))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, with K1c and K1d as its backward. ``setup_context``
+    and ``vmap`` let ``torch.func`` transform it; a vmapped call folds
+    the mapped axis into the batch (one launch)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, sm_scale):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        return flash_forward(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, sm_scale = inputs
+        out, lse = output
+        ctx.save_for_backward(*(t.contiguous() for t in (q, k, v)), out,
+                              lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, sm_scale):
+        q, k, v = _build.batch_first(info, in_dims[:3], q, k, v)
+        n = info.batch_size
+        out, lse = _FlashAttention.apply(
+            *(t.reshape(n * t.shape[1], *t.shape[2:]) for t in (q, k, v)),
+            causal, sm_scale)
+        return ((out.reshape(n, -1, *out.shape[1:]),
+                 lse.reshape(n, -1, *lse.shape[1:])), (0, 0))
+
+    @staticmethod
+    def backward(ctx, g, _glse):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
-        dq, delta = flash_backward_dq(q, k, v, out, lse, g, ctx.causal,
-                                      ctx.sm_scale)
-        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, ctx.causal,
-                                    ctx.sm_scale)
+        dq, dk, dv = _FlashBackward.apply(q, k, v, out, lse, g, ctx.causal,
+                                          ctx.sm_scale)
         return dq, dk, dv, None, None
 
 
@@ -314,7 +366,9 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     differentiable in q, k and v. ``sm_scale`` defaults to D**-0.5."""
     if q.dim() != 4:
         raise ValueError(f"expected (b, h, l, d), got {tuple(q.shape)}")
-    return _FlashAttention.apply(q, k, v, bool(causal), _scale(q, sm_scale))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, bool(causal),
+                                 _scale(q, sm_scale))[0]
 
 
 _build.counted(flash_forward)

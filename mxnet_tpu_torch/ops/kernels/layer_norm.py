@@ -131,13 +131,35 @@ def _ln_forward(x, gamma, beta, eps):
 
 
 class _LayerNorm(torch.autograd.Function):
+    """K2 with the reference's ``_ln_bwd``. ``setup_context`` and
+    ``vmap`` let ``torch.func`` transform it: a vmapped call folds the
+    mapped axis into the rows (one launch); with a mapped gamma or beta
+    it launches once per mapped entry."""
+
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        y, mean, rstd = _ln_forward(x, gamma, beta, eps)
+    def forward(x, gamma, beta, eps):
+        return _ln_forward(x, gamma, beta, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, _ = inputs
+        _, mean, rstd = output
         ctx.save_for_backward(x, gamma, mean, rstd)
         ctx.beta_dtype = beta.dtype
         ctx.mark_non_differentiable(mean, rstd)
-        return y, mean, rstd
+
+    @staticmethod
+    def vmap(info, in_dims, x, gamma, beta, eps):
+        x, gamma, beta = _build.batch_first(info, in_dims[:3], x, gamma,
+                                            beta)
+        if in_dims[1] is None and in_dims[2] is None:
+            b, n, d = x.shape
+            y, mean, rstd = _LayerNorm.apply(x.reshape(b * n, d), gamma[0],
+                                             beta[0], eps)
+            return (y.reshape(b, n, d), mean.reshape(b, n),
+                    rstd.reshape(b, n)), (0, 0, 0)
+        outs = [_LayerNorm.apply(*row, eps) for row in zip(x, gamma, beta)]
+        return tuple(torch.stack(t) for t in zip(*outs)), (0, 0, 0)
 
     @staticmethod
     def backward(ctx, gy, _gmean, _grstd):
@@ -214,12 +236,28 @@ def _rms_forward(x, gamma, eps):
 
 
 class _RMSNorm(torch.autograd.Function):
+    """K2r with the reference's ``_rms_bwd``; ``torch.func`` rules as
+    :class:`_LayerNorm`'s."""
+
     @staticmethod
-    def forward(ctx, x, gamma, eps):
-        y, rstd = _rms_forward(x, gamma, eps)
-        ctx.save_for_backward(x, gamma, rstd)
-        ctx.mark_non_differentiable(rstd)
-        return y, rstd
+    def forward(x, gamma, eps):
+        return _rms_forward(x, gamma, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, _ = inputs
+        ctx.save_for_backward(x, gamma, output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def vmap(info, in_dims, x, gamma, eps):
+        x, gamma = _build.batch_first(info, in_dims[:2], x, gamma)
+        if in_dims[1] is None:
+            b, n, d = x.shape
+            y, rstd = _RMSNorm.apply(x.reshape(b * n, d), gamma[0], eps)
+            return (y.reshape(b, n, d), rstd.reshape(b, n)), (0, 0)
+        outs = [_RMSNorm.apply(*row, eps) for row in zip(x, gamma)]
+        return tuple(torch.stack(t) for t in zip(*outs)), (0, 0)
 
     @staticmethod
     def backward(ctx, gy, _grstd):

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 __all__ = ["fully_connected", "activation", "embedding", "convolution",
            "deconvolution", "pooling", "adaptive_avg_pool2d", "batch_norm",
-           "layer_norm", "rms_norm", "dropout", "generator",
+           "layer_norm", "rms_norm", "group_norm", "instance_norm",
+           "l2_normalization", "leaky_relu", "dropout", "generator",
            "dropout_generator", "seed", "using_generator", "attend",
            "softmax", "log_softmax", "pick", "softmax_cross_entropy",
            "kv_cache_quantize", "kv_cache_dequantize", "paged_write",
@@ -418,6 +419,81 @@ def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     bshape = [1] * x.dim()
     bshape[axis] = x.shape[axis]
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    """GroupNorm over NC... (``mxnet_tpu/ops/nn.py:576``; reference
+    src/operator/nn/group_norm.cc): mean and biased variance over each
+    group of ``C / num_groups`` channels and the spatial axes, then a
+    per-channel affine."""
+    n, c = x.shape[:2]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    var, mean = torch.var_mean(xg, dim=axes, correction=0, keepdim=True)
+    out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """InstanceNorm (``mxnet_tpu/ops/nn.py:590``; reference
+    src/operator/instance_norm.cc): each sample's channels normalized
+    over the spatial axes, then a per-channel affine."""
+    axes = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    bshape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def l2_normalization(x, eps=1e-10, mode="instance"):
+    """``x / sqrt(sum(x²) + eps)`` over every axis but the batch
+    (``instance``), the channel axis (``channel``) or the spatial axes
+    (``spatial``) (``mxnet_tpu/ops/nn.py:621``)."""
+    if mode == "instance":
+        axes = tuple(range(1, x.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, x.dim()))
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=axes,
+                                    keepdim=True) + eps)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def leaky_relu(x, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, training=True):
+    """reference src/operator/leaky_relu.cc (``mxnet_tpu/ops/nn.py:660``):
+    ``leaky`` (``slope * x`` below 0), ``prelu`` (a learned ``gamma``,
+    per channel on axis 1 when 1-D), ``elu``, ``selu``, ``gelu`` (erf)
+    and ``rrelu``: a slope drawn uniformly in [lower_bound, upper_bound)
+    per element while ``training`` (from :func:`generator` of x's
+    device), their mean otherwise."""
+    if act_type == "leaky":
+        return torch.where(x >= 0, x, slope * x)
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() == 1 and g.dim() < x.dim():
+            g = g.reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x >= 0, x, g * x)
+    if act_type == "elu":
+        return torch.where(x >= 0, x, slope * (torch.exp(x) - 1))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(x >= 0, x,
+                                         _SELU_ALPHA * (torch.exp(x) - 1))
+    if act_type == "gelu":
+        return F.gelu(x, approximate="none")
+    if act_type == "rrelu":
+        if training:
+            u = torch.rand(x.shape, generator=generator(x.device),
+                           device=x.device)
+            u = (u * (upper_bound - lower_bound) + lower_bound).to(x.dtype)
+        else:
+            u = (lower_bound + upper_bound) / 2.0
+        return torch.where(x >= 0, x, u * x)
+    raise ValueError(f"unknown leaky_relu type {act_type}")
 
 
 def rms_norm(x, gamma, axis=-1, eps=1e-6):

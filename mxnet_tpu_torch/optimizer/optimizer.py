@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import math
 import pickle
+from contextlib import contextmanager
 from typing import Dict, Tuple
 
 import numpy as onp
@@ -57,6 +58,12 @@ def create(name, **kwargs) -> "Optimizer":
     return klass(**kwargs)
 
 
+def _sqrt(x):
+    """sqrt of a Python number or of a 0-d tensor (a rule's scalar on the
+    device-scalar route)."""
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
 def _norm(x):
     """A tensor's L2 norm as a float64 scalar tensor, its squares summed in
     float64: a float32 sum of an embedding's 24.6M squares drifts by up
@@ -83,7 +90,17 @@ class Optimizer:
     ``fusable`` (the reference's ``jit_safe``): the Trainer may take one
     learning rate for all parameters of a step. SGLD (fresh noise) and
     Nadam (a schedule advanced per parameter) are not, and the Trainer
-    calls their :meth:`update` per parameter."""
+    calls their :meth:`update` per parameter.
+
+    The rules take ``lr`` and ``t`` as Python numbers (:meth:`update`) or
+    as 0-d tensors on the weights' device (the Trainer's fused update,
+    whose CUDA graph reads them where they lie: ``lr`` float32, ``t``
+    float64, so ``beta ** t`` is taken in float64 as the reference's
+    traced ``t`` widens it). Their arithmetic on a tensor scalar is the
+    same torch ops whether the update runs eagerly or replays, so the
+    two agree bitwise. A scalar derived from ``lr`` and ``t`` alone (a
+    bias correction) is made once per step inside :meth:`scalar_memo`,
+    not once per parameter."""
 
     fusable = True
 
@@ -114,6 +131,30 @@ class Optimizer:
         self.lr_mult: Dict = {}
         self.wd_mult: Dict = {}
         self._kwargs = kwargs
+        self._memo = None
+
+    @contextmanager
+    def scalar_memo(self):
+        """Inside the scope, :meth:`_once` computes each derived scalar
+        once for the tensors ``lr`` and ``t`` it was given (the Trainer's
+        fused update over many parameters)."""
+        self._memo = {}
+        try:
+            yield
+        finally:
+            self._memo = None
+
+    def _once(self, name, make, *scalars):
+        """``make()``, or inside :meth:`scalar_memo` the value it gave for
+        the same ``name`` and the same ``scalars`` objects (alive for the
+        whole scope, so their ids stay unique)."""
+        if self._memo is None:
+            return make()
+        key = (name,) + tuple(id(s) for s in scalars)
+        got = self._memo.get(key)
+        if got is None:
+            got = self._memo[key] = make()
+        return got
 
     # -- scheduling ---------------------------------------------------------
     @property
@@ -291,12 +332,13 @@ class Signum(Optimizer):
 
     def update_step(self, w, g, state, lr, wd, t):
         g = g + wd * w
+        keep = self._once("signum_decay", lambda: 1 - lr * self.wd_lh, lr)
         if self.momentum == 0.0:
-            w.mul_(1 - lr * self.wd_lh).sub_(lr * torch.sign(g))
+            w.mul_(keep).sub_(lr * torch.sign(g))
             return
         (mom,) = state
         mom.mul_(self.momentum).sub_((1 - self.momentum) * g)
-        w.mul_(1 - lr * self.wd_lh).add_(lr * torch.sign(mom))
+        w.mul_(keep).add_(lr * torch.sign(mom))
 
 
 signsgd = Signum
@@ -411,7 +453,8 @@ class Adam(Optimizer):
         return m, v
 
     def _corrected(self, lr, t):
-        return lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        return self._once("adam_lr", lambda: lr * _sqrt(
+            1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t), lr, t)
 
     def update_step(self, w, g, state, lr, wd, t):
         if wd:
@@ -453,7 +496,9 @@ class Adamax(Optimizer):
             g = g + wd * w
         m.mul_(self.beta1).add_((1 - self.beta1) * g)
         torch.maximum(self.beta2 * u, g.abs(), out=u)
-        w.sub_(lr / (1 - self.beta1 ** t) * m / (u + self.epsilon))
+        step = self._once("adamax_lr", lambda: lr / (1 - self.beta1 ** t),
+                          lr, t)
+        w.sub_(step * m / (u + self.epsilon))
 
 
 @register
@@ -615,8 +660,9 @@ class FTML(Optimizer):
             g = g + wd * w
         b1 = self.beta1
         v.mul_(self.beta2).add_((1 - self.beta2) * g.square())
-        d = (1 - b1 ** t) / lr * (
-            (v / (1 - self.beta2 ** t)).sqrt() + self.epsilon)
+        c1 = self._once("ftml_c1", lambda: (1 - b1 ** t) / lr, lr, t)
+        c2 = self._once("ftml_c2", lambda: 1 - self.beta2 ** t, t)
+        d = c1 * ((v / c2).sqrt() + self.epsilon)
         sigma = d - b1 * prev_d
         z.mul_(b1).add_((1 - b1) * g).sub_(sigma * w)
         w.copy_(-z / d)
@@ -646,8 +692,8 @@ class LAMB(Optimizer):
         m.mul_(self.beta1).add_((1 - self.beta1) * g)
         v.mul_(self.beta2).add_((1 - self.beta2) * g.square())
         if self.bias_correction:
-            m_hat = m / (1 - self.beta1 ** t)
-            v_hat = v / (1 - self.beta2 ** t)
+            m_hat = m / self._once("lamb_c1", lambda: 1 - self.beta1 ** t, t)
+            v_hat = v / self._once("lamb_c2", lambda: 1 - self.beta2 ** t, t)
         else:
             m_hat, v_hat = m, v
         r = m_hat / (v_hat.sqrt() + self.epsilon) + wd * w

@@ -35,7 +35,6 @@ LENGTHS = [3, 9, 30]
 
 def _models(seed):
     jnet = jbert.gpt_like(dropout=0.0, **CFG)
-    jnet.initialize()
     rng = onp.random.RandomState(seed)
     params = {}
     for name, p in jnet.collect_params().items():

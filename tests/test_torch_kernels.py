@@ -674,14 +674,17 @@ def test_fused_gate(monkeypatch):
 
 
 def test_wrappers_dispatch_by_device_and_count_only_launches():
-    """CPU tensors take the plain version and count no launch; tensors on
-    an unsupported device or on mixed devices raise instead of falling
-    back."""
+    """CPU tensors take the plain version and count no launch, as meta
+    tensors do (shapes only, for ``infer_shape``); tensors on mixed
+    devices raise instead of falling back."""
     before = tln.fused_layer_norm.launches
     x = torch.randn(4, 8)
     tln.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
     assert tln.fused_layer_norm.launches == before
-    with pytest.raises(Exception, match="no kernel for device"):
-        _build.on_cpu("k", torch.empty(2, device="meta"))
+    y, mean, _ = tln.fused_layer_norm(x.to("meta"), torch.ones(8, device="meta"),
+                                      torch.zeros(8, device="meta"))
+    assert y.device.type == "meta" and tuple(y.shape) == (4, 8)
+    assert tuple(mean.shape) == (4,)
+    assert tln.fused_layer_norm.launches == before
     with pytest.raises(Exception, match="several devices"):
         _build.on_cpu("k", torch.empty(2), torch.empty(2, device="meta"))

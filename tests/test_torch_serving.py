@@ -17,9 +17,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from mxnet_tpu import engine as jengine
 from mxnet_tpu import numpy as mxnp
 from mxnet_tpu.gluon.model_zoo import bert as jbert
 from mxnet_tpu.gluon.model_zoo.generation import generate as jgenerate
+from mxnet_tpu.ndarray.ndarray import _wrap
 from mxnet_tpu.ops.nn import kv_cache_quantize as jquantize
 from mxnet_tpu.serving.llm import LLMEngine as JEngine
 from mxnet_tpu_torch.base import MXNetError
@@ -36,7 +38,6 @@ CFG = dict(vocab_size=53, units=32, hidden_size=64, num_layers=2,
 def _params(seed):
     """Seeded numpy weights under the reference's parameter names."""
     jnet = jbert.gpt_like(dropout=0.0, **CFG)
-    jnet.initialize()
     rng = onp.random.RandomState(seed)
     params = {}
     for name, p in jnet.collect_params().items():
@@ -62,6 +63,19 @@ def _t(a):
     return torch.from_numpy(onp.array(a))
 
 
+def _jit_call(method, *arrays):
+    """The JAX model's ``method`` on numpy arrays under one ``jax.jit``
+    (one compiled program where the eager call compiles each op), with
+    ``engine._track``'s per-value check, which asks every tracer for
+    ``block_until_ready``, off while it traces; its outputs as numpy."""
+    def run(*xs):
+        return tuple(o._data for o in method(*(_wrap(x) for x in xs)))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jengine, "_track", lambda val: None)
+        return [onp.asarray(o) for o in jax.jit(run)(*arrays)]
+
+
 def test_state_dict_names_are_the_reference_names():
     jnet, params = _params(0)
     tnet = tbert.gpt_like(device="cpu", **CFG)
@@ -81,35 +95,32 @@ def test_state_dict_names_are_the_reference_names():
 
 def test_prefill_and_paged_decode_logits_match_jax():
     """One decode_step (the prefill path) and one decode_step_paged: the
-    port's logits within 1e-4 of the JAX model's (f32 caches)."""
+    port's logits within 1e-4 of the JAX model's (f32 caches; the JAX
+    calls under one jit each, :func:`_jit_call`)."""
     jnet, tnet = _models(1)
     rng = onp.random.RandomState(2)
     prompt = rng.randint(0, 53, (2, 7)).astype(onp.int32)
     jck, jcv = jnet.init_cache(2, 16, dtype="float32")
-    jlg, _, _ = jnet.decode_step(mxnp.array(prompt), jck, jcv,
-                                 mxnp.array(onp.int32(0)))
+    jlg, _, _ = _jit_call(jnet.decode_step, prompt, onp.asarray(jck._data),
+                          onp.asarray(jcv._data), onp.int32(0))
     tck, tcv = tnet.init_cache(2, 16, dtype="float32")
     with torch.no_grad():
         tlg, _, _ = tnet.decode_step(_t(prompt), tck, tcv, 0)
-    onp.testing.assert_allclose(tlg.numpy(), jlg.asnumpy(), rtol=1e-4,
-                                atol=1e-4)
+    onp.testing.assert_allclose(tlg.numpy(), jlg, rtol=1e-4, atol=1e-4)
 
     nb, bs = 9, 4
     pool = (rng.randn(2, nb, 4, bs, 8) * 0.5).astype(onp.float32)
     toks = onp.array([[7], [11], [3]], onp.int32)
     bt = onp.array([[0, 1, 8, 8], [2, 3, 4, 8], [5, 8, 8, 8]], onp.int32)
     pos = onp.array([2, 9, 0], onp.int32)
-    jlg, jpk, _ = jnet.decode_step_paged(
-        mxnp.array(toks), mxnp.array(pool), mxnp.array(pool),
-        mxnp.array(bt), mxnp.array(pos))
+    jlg, jpk, _ = _jit_call(jnet.decode_step_paged, toks, pool, pool, bt,
+                            pos)
     tpk, tpv = _t(pool), _t(pool)
     with torch.no_grad():
         tlg, tpk, _ = tnet.decode_step_paged(_t(toks), tpk, tpv, _t(bt),
                                              _t(pos))
-    onp.testing.assert_allclose(tlg.numpy(), jlg.asnumpy(), rtol=1e-4,
-                                atol=1e-4)
-    onp.testing.assert_allclose(tpk.numpy(), jpk.asnumpy(), rtol=1e-4,
-                                atol=1e-4)
+    onp.testing.assert_allclose(tlg.numpy(), jlg, rtol=1e-4, atol=1e-4)
+    onp.testing.assert_allclose(tpk.numpy(), jpk, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("fused", ["0", "1"])
@@ -117,7 +128,8 @@ def test_int8_paged_decode_step_close_to_jax(monkeypatch, fused):
     """int8 pools: one paged decode step's logits within 2e-4 of the JAX
     model's, through the port's unfused path and through its fused path
     (fused_decode_step on plain versions) — the mirror of
-    test_fused_decode_int8_pool_close_to_unfused."""
+    test_fused_decode_int8_pool_close_to_unfused. The JAX step runs
+    under one jit (:func:`_jit_call`)."""
     jnet, tnet = _models(3)
     rng = onp.random.RandomState(4)
     pool = onp.asarray(jax.jit(jquantize)(
@@ -126,15 +138,12 @@ def test_int8_paged_decode_step_close_to_jax(monkeypatch, fused):
     bt = onp.array([[0, 1, 8, 8], [2, 3, 8, 8]], onp.int32)
     pos = onp.array([2, 5], onp.int32)
     monkeypatch.setenv("MXNET_TPU_LLM_FUSED_DECODE", "0")
-    jlg, _, _ = jnet.decode_step_paged(
-        mxnp.array(toks), mxnp.array(pool), mxnp.array(pool),
-        mxnp.array(bt), mxnp.array(pos))
+    jlg, _, _ = _jit_call(jnet.decode_step_paged, toks, pool, pool, bt, pos)
     monkeypatch.setenv("MXNET_TPU_LLM_FUSED_DECODE", fused)
     with torch.no_grad():
         tlg, _, _ = tnet.decode_step_paged(_t(toks), _t(pool), _t(pool),
                                            _t(bt), _t(pos))
-    onp.testing.assert_allclose(tlg.numpy(), jlg.asnumpy(), rtol=2e-4,
-                                atol=2e-4)
+    onp.testing.assert_allclose(tlg.numpy(), jlg, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("kv", ["float32", "int8"])
@@ -255,7 +264,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     manifest, the codec, the blob store, the spill tier) import, and an
     int8-weight engine with the host and disk spill tiers serves a
     session that is evicted and re-attached, with a trace id, a step
-    hook and a saved warmup manifest, and beam_search runs."""
+    hook and a saved warmup manifest, and beam_search runs; the compiled
+    training step's modules (the block's recorded node, the Trainer's
+    fused update, the passes, the new blocks and ops) import, and a
+    hybridized net with the new blocks takes a recorded training step
+    through the Trainer, its shapes completed by infer_shape, then
+    optimize_for folds its BatchNorm, and torch.func.grad of its
+    functionalize fn runs."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -398,6 +413,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "seqs, scores = beam_search(net, np.array([[1, 2, 3]]), 3,"
         " beam_size=2, weight_dtype='int8', device='cpu')\n"
         "assert seqs.shape == (1, 2, 3) and torch.isfinite(scores).all()\n"
+        "from mxnet_tpu_torch.contrib import passes\n"
+        "from mxnet_tpu_torch.gluon.block import _graphs_off\n"
+        "hn = nn.HybridSequential()\n"
+        "hn.add(nn.Conv2D(4, 3), nn.BatchNorm(), nn.PReLU(), nn.GroupNorm(2),"
+        " nn.Flatten(), nn.Dense(3))\n"
+        "hn.initialize(device='cpu')\n"
+        "assert hn.infer_shape(torch.rand(2, 3, 6, 6)) == (2, 3)\n"
+        "hn.hybridize()\n"
+        "htr = Trainer(hn.collect_params(), 'lamb')\n"
+        "with autograd.record():\n"
+        "    ho = hn(torch.rand(2, 3, 6, 6))\n"
+        "    hl = SoftmaxCrossEntropyLoss()(ho, torch.tensor([0, 2]))\n"
+        "assert type(ho.grad_fn).__name__ == '_CachedOpBackward'\n"
+        "autograd.backward(hl)\n"
+        "htr.step(2)\n"
+        "assert torch.isfinite(hn[5].weight.data()).all()\n"
+        "hfn, hp = hn.functionalize(torch.rand(2, 3, 6, 6))\n"
+        "hg = torch.func.grad(lambda p: hfn(p, torch.rand(2, 3, 6, 6))[0]"
+        ".sum())(hp)\n"
+        "assert hg['5.weight'].shape == (3, 64)\n"
+        "hn.optimize_for(torch.rand(2, 3, 6, 6), backend='fold_bn')\n"
+        "assert type(hn[1]).__name__ == 'Identity'\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

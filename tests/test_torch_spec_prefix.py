@@ -47,7 +47,6 @@ def _t(a):
 def models():
     """(JAX target, JAX draft, port target, port draft)."""
     jnet = jbert.gpt_like(num_layers=2, dropout=0.0, **CFG)
-    jnet.initialize()
     rng = onp.random.RandomState(70)
     params = {}
     for name, p in jnet.collect_params().items():
@@ -56,7 +55,6 @@ def models():
                         + name.endswith(".gamma")).astype(onp.float32)
         p.set_data(params[name])
     jdraft = jbert.gpt_like(num_layers=1, dropout=0.0, **CFG)
-    jdraft.initialize()
     dparams = {name: params[name]
                for name in jdraft.collect_params().keys()}
     for name, p in jdraft.collect_params().items():
@@ -162,11 +160,16 @@ def _windows(seed, r):
     return tl, dl, toks
 
 
+# the reference's acceptance under one jit (its engine's programs run it
+# compiled; op by op it compiles each op on its first call)
+_jspec_accept = jax.jit(jgen._spec_accept, static_argnums=(4, 5, 6))
+
+
 def test_spec_accept_greedy_exact():
     tl, dl, toks = _windows(4, 12)
-    j_out, j_n = jgen._spec_accept(jnp.asarray(tl), jnp.asarray(dl),
-                                   jnp.asarray(toks), jax.random.PRNGKey(0),
-                                   True, 1.0, 0)
+    j_out, j_n = _jspec_accept(jnp.asarray(tl), jnp.asarray(dl),
+                               jnp.asarray(toks), jax.random.PRNGKey(0),
+                               True, 1.0, 0)
     t_out, t_n = tgen._spec_accept(_t(tl), _t(dl), _t(toks), None, True,
                                    1.0, 0)
     onp.testing.assert_array_equal(t_n.numpy(), onp.asarray(j_n))
@@ -185,8 +188,8 @@ def test_spec_accept_sampled_on_jax_draws_exact(policy):
     toks = onp.stack([[rng.choice(V, p=q[i, j] / q[i, j].sum())
                        for j in range(K)] for i in range(r)]).astype(onp.int32)
     key = jax.random.PRNGKey(11)
-    j_out, j_n = jgen._spec_accept(jnp.asarray(tl), jnp.asarray(dl),
-                                   jnp.asarray(toks), key, False, *policy)
+    j_out, j_n = _jspec_accept(jnp.asarray(tl), jnp.asarray(dl),
+                               jnp.asarray(toks), key, False, *policy)
     _, ku, kr = jax.random.split(key, 3)
     # the reference runs with x64 on: u is float64; categorical's noise
     # takes the logits' float32

@@ -44,7 +44,6 @@ B, L = 2, 16
 def jax_blocks():
     """The JAX gpt_like and loss, hybridized; each test sets the weights."""
     jnet = jbert.gpt_like(dropout=0.0, **CFG)
-    jnet.initialize()
     jnet.hybridize()
     jloss = JLoss()
     jloss.hybridize()
@@ -57,7 +56,6 @@ def _models(seed, jnet=None):
     from_jax_params."""
     if jnet is None:
         jnet = jbert.gpt_like(dropout=0.0, **CFG)
-        jnet.initialize()
     rng = onp.random.RandomState(seed)
     params = {}
     for name, p in jnet.collect_params().items():

@@ -363,8 +363,9 @@ def test_conv_pool_norm_layers_match_jax():
     everywhere) in both packages on the same seeded weights: forward in
     predict mode and in training mode, where BatchNorm's running
     statistics must move alike; names equal, and the JAX net runs on
-    the shapes the port's forward completed. f32 within 1e-5 (stacked
-    ops of F32_TOL each)."""
+    the shapes the port's forward completed, as its ``functionalize``
+    fn in each mode under one ``jax.jit`` (the new statistics are what
+    that fn returns). f32 within 1e-5 (stacked ops of F32_TOL each)."""
     rng = onp.random.RandomState(8)
     inputs = (rng.randn(2, 4, 9, 8), rng.randn(2, 3, 10),
               rng.randn(1, 2, 4, 5, 4))
@@ -376,17 +377,16 @@ def test_conv_pool_norm_layers_match_jax():
         from_jax_params(params, tnet)
         assert list(tnet.collect_params()) == list(jnet.collect_params())
         for mode in ("predict", "train"):
+            fn, jparams = jnet.functionalize(jx, training=mode == "train")
+            jy, jnew = jax.jit(fn)(jparams, jnp.asarray(x, jnp.float32))
             if mode == "train":
-                with jmx.autograd.record():
-                    jy = jnet(jx)
                 with autograd.record():
                     ty = tnet(tx)
             else:
-                jy, ty = jnet(jx), tnet(tx)
-            _close(ty, jy.asnumpy(), 1e-5, mode)
-        for name, p in jnet.collect_params().items():
-            _close(tnet.collect_params()[name].data(), p.data().asnumpy(),
-                   1e-5, name)
+                ty = tnet(tx)
+            _close(ty, onp.asarray(jy), 1e-5, mode)
+        for name, p in tnet.collect_params().items():
+            _close(p.data(), onp.asarray(jnew[name]), 1e-5, name)
 
 
 # ---------------------------------------------------------------------------
@@ -588,14 +588,23 @@ def test_resnet18_train_step_and_sgd_match_jax():
 
 
 def test_resnet18_v1_golden_logits(tmp_path):
-    """The JAX package's model store writes resnet18_v1's .params; the
-    port loads it with ``load_parameters`` and its train-mode logits on
-    the golden input (``tests/test_model_zoo.py``) equal
+    """resnet18_v1's .params as the JAX package's model store serves it:
+    the port's store writes the file (1.8 s, where the JAX store's own
+    generation takes 19 s on the CPU), the JAX store serves it, and its
+    sha256 is the reference's manifest entry, so the bytes are the
+    ones the reference generates; the port loads it with
+    ``load_parameters`` and its train-mode logits on the golden input
+    (``tests/test_model_zoo.py``) equal
     ``tests/golden/resnet18_v1_logits.npz`` within the JAX test's
     2e-4 (rtol and atol)."""
     from mxnet_tpu.gluon.model_zoo import model_store
+    from mxnet_tpu_torch.gluon.model_zoo import model_store as tstore
 
+    written = tstore.get_model_file("resnet18_v1", root=str(tmp_path))
     path = model_store.get_model_file("resnet18_v1", root=str(tmp_path))
+    assert path == written
+    assert (model_store._file_sha256(path)
+            == model_store._MODEL_SHA256["resnet18_v1"])
     net = tvision.resnet18_v1()
     net.load_parameters(path, device="cpu")
     x = onp.random.RandomState(1234).uniform(
