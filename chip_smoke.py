@@ -16,6 +16,7 @@ NVIDIA H100.
     python3 chip_smoke.py --options    # phases 1 and 13 only (no result)
     python3 chip_smoke.py --graphtrain # phases 1 and 14 only (no result)
     python3 chip_smoke.py --array      # phases 1 and 15 only (no result)
+    python3 chip_smoke.py --detect     # phases 1 and 16 only (no result)
     python3 chip_smoke.py --serve-ab=A,B,B,A [--rounds=20]
                                        # phase 3's workload on the
                                        # engine of each tree listed
@@ -288,6 +289,33 @@ Phases (each asserts; any failure exits non-zero before the result line):
    valid lengths 64..128 (:func:`array_selfatt`). A hybridized block
    calling ``np.nonzero`` raises MXNetError in its capture
    (:func:`array_capture_guard`).
+16. SSD300 detection and the contrib ops (:func:`detect_phase`). SSD300
+   as published (Liu et al., ECCV 2016: six maps, 8732 anchors, 21
+   classes) over the port's resnet50_v1 body at 300x300 and three extra
+   blocks, trained 10 steps as ``example/gluon/ssd.py`` trains it (B 32
+   synthetic images of 1-8 rectangles, ``npx.multibox_target`` under
+   ``autograd.pause()`` with 3:1 hard negatives, the weighted cross
+   entropy and the masked L1, ``Trainer(..., "adam")`` at 2e-3) under
+   ``default``: a falling loss, K3 exactly once a step and no other
+   kernel, step ms, img/s, peak memory, and ``multibox_target``'s ms,
+   share of the step and launches (:func:`det_train`). A held-out batch
+   decoded by ``npx.multibox_detection`` (threshold 0.01, NMS 0.45, top
+   400) with its ms and the recall at IoU 0.5 through ``npx.box_iou``
+   (printed); ``box_nms`` over one image's 8732 decoded boxes and
+   ``bipartite_matching`` of its anchors against its ground truths. The
+   four run under ``torch.cuda.set_sync_debug_mode("error")`` and are
+   held against their CPU copies: class ids, matches and masks exactly
+   (a difference only where an IoU lies within 1e-6 of its threshold,
+   printed), values within 1e-5 of 1 + the largest (:func:`det_eval`).
+   Under ``highest``, each against its CPU copy with device ms (and
+   backward ms): ``roi_align`` at Mask R-CNN's FPN P2 with its gradient,
+   ``roi_pooling`` at Fast R-CNN's VGG16 conv5, ``psroi_pooling`` at
+   R-FCN's head, both deformable convolutions at a DCN's ResNet-50 res5
+   with their gradients and one ``DeformableConvolution`` block,
+   ``bilinear_resize_2d`` and ``sync_batch_norm`` at SSD's (32, 256, 38,
+   38), ``foreach`` over an LSTM-style cell of 768 units (B 32, 128
+   steps) with its gradients, and ``while_loop`` and ``cond`` eagerly,
+   captured and replayed in a hybridized block (:func:`det_ops`).
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -6089,8 +6117,9 @@ ARRAY_DECOMP_TOL = 1e-3
 # own row alone)
 ARRAY_CPU_MATS = 8
 ARRAY_CPU_ROWS = 1024
-# callables of the swept modules that this PR did not port: names of
-# earlier slices (run by phases 2-14), imports, and numpy's type classes
+# callables of the swept modules that phase 15 does not sweep: names of
+# earlier slices (run by phases 2-14), of phase 16 (ops/contrib.py's and
+# control flow's npx names), imports, and numpy's type classes
 ARRAY_EARLIER = {
     "numpy": """abs absolute add arange arccos arccosh arcsin arcsinh arctan
         arctan2 arctanh argmax argmin around array asarray cbrt ceil
@@ -6107,7 +6136,13 @@ ARRAY_EARLIER = {
     "numpy.random": "normal randint seed uniform",
     "numpy_extension": """activation batch_norm convolution deconvolution
         dropout embedding fully_connected gelu group_norm instance_norm
-        l2_normalization layer_norm leaky_relu pooling rms_norm""",
+        l2_normalization layer_norm leaky_relu pooling rms_norm
+        all_finite allclose bilinear_resize_2d bipartite_matching box_iou
+        box_nms count_sketch deformable_convolution gradientmultiplier
+        hawkes_ll index_array khatri_rao modulated_deformable_convolution
+        multi_all_finite multi_sum_sq multibox_detection multibox_prior
+        multibox_target nnz psroi_pooling quadratic roi_align roi_pooling
+        round_ste sign_ste sync_batch_norm foreach while_loop cond""",
     "numpy_extension.random": "normal randint seed uniform",
 }
 ARRAY_NOT_API = {
@@ -6716,6 +6751,7 @@ def _decomposition(torch, mx, d, dc, name):
         vd = v.double()
         err = max(_rel((vd * w.double()[:, None, :]) @ vd.transpose(1, 2),
                        d["B2"]), _rel(w[:k].cpu(), wc))
+        eigh_f64(torch, w[:k].cpu(), wc, dc["B2"][:k])
     else:
         a = d["MAT"][:k] if name == "eig" else d["MAT"]
         out = getattr(la, name)(a)
@@ -6730,6 +6766,27 @@ def _decomposition(torch, mx, d, dc, name):
             err = max(err, _rel(a.cdouble() @ vd,
                                 vd * w.cdouble()[:, None, :]))
     return outs, err
+
+
+def eigh_f64(torch, card, cpu, mats):
+    """The card's and the CPU's f32 eigenvalues of ``mats`` against an f64
+    eigvalsh of the same matrices: each side's largest error over the
+    matrix's norm (its largest |eigenvalue|), printed beside the f32
+    solvers' backward-error scale 256 * 2**-24 and kept as
+    ``eigh_f64.last``."""
+    w64 = torch.linalg.eigvalsh(mats.double())
+    norm = w64.abs().max(-1, keepdim=True).values
+    errs = {side: ((w.double() - w64).abs() / norm).max().item()
+            for side, w in (("card", card), ("cpu", cpu))}
+    scale = 256 * 2.0 ** -24
+    worse = "card" if errs["card"] > errs["cpu"] else "CPU"
+    print(f"phase 15 eigh against an f64 eigvalsh of the same "
+          f"{mats.shape[0]} matrices: card {errs['card']:.3e}, CPU "
+          f"{errs['cpu']:.3e} of the norm, {errs['card'] / scale:.2f}x and "
+          f"{errs['cpu'] / scale:.2f}x of 256 * 2**-24 = {scale:.3e}; the "
+          f"{worse} errs more", flush=True)
+    eigh_f64.last = dict(errs, scale=scale)
+    return errs
 
 
 def _rel(a, b):
@@ -7139,6 +7196,7 @@ def array_phase(torch, card, wrappers):
     dev = torch.device("cuda", 0)
     with matmul_precision_scope("highest"):
         out = {"sweep": array_sweep(torch, mx, dev)}
+        out["eigh_f64"] = getattr(eigh_f64, "last", None)
         torch.cuda.empty_cache()
         out["out_of_range"] = array_out_of_range(torch, mx, dev)
         out["selfatt"] = array_selfatt(torch, mx, dev, wrappers)
@@ -7146,6 +7204,838 @@ def array_phase(torch, card, wrappers):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 15 took {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
+# -- phase 16: SSD300 detection and the contrib ops ---------------------------
+# SSD300 as published (Liu et al., SSD: Single Shot MultiBox Detector,
+# ECCV 2016, §2.2-3): six maps, sizes 30..315 over 300, each map
+# (s_k, sqrt(s_k s_k+1)), ratios {1, 2, 1/2} on the first map and the last
+# two and {1, 2, 1/2, 3, 1/3} on the others: 8732 anchors. The backbone is
+# the port's resnet50_v1 body at 300x300 (stride 8, 16 and 32 stages: 38,
+# 19 and 10 cells), three extra blocks (10 -> 5 -> 3 -> 1), and per map a
+# 3x3 convolution for anchors x 21 class scores (Pascal VOC's 20 and the
+# background) and one for anchors x 4 offsets. Trained as
+# example/gluon/ssd.py:174-222 trains (multibox_target under pause, 3:1
+# hard negatives, the weighted cross entropy and the masked L1, Adam at
+# 2e-3) on 32 synthetic images of 1-8 rectangles from numpy seed 0, under
+# the default policy; the ops' checks run under highest.
+DET_SIZE, DET_B, DET_STEPS, DET_CLASSES, DET_MAX_OBJ = 300, 32, 10, 20, 8
+DET_SIZES = (30, 60, 111, 162, 213, 264, 315)
+DET_RATIOS = [(1, 2, 0.5) if i in (0, 4, 5) else (1, 2, 0.5, 3, 1 / 3)
+              for i in range(6)]
+DET_ANCHORS = 8732
+DET_EXTRAS = ((256, 512, 2, 1), (128, 256, 2, 1), (128, 256, 1, 0))
+DET_CPU_IMAGES = 8               # the CPU copies' slice of a batch
+DET_CPU_ROIS = 64
+DET_EW, DET_DEF = 1e-5, 1e-4     # f32 values; deformable products, foreach
+DET_NEAR = 1e-6                  # an IoU this close to its threshold may tie
+DET_THRESH = dict(threshold=0.01, nms_threshold=0.45, nms_topk=400)
+DET_LSTM = (768, 32, 128)        # units, batch, steps of foreach's cell
+# the detection-model ops' published shapes: (data shape, rois, image
+# width and height the rois fall in)
+DET_ROI_ALIGN = ((2, 256, 200, 336), 1024, 1333, 800)    # Mask R-CNN P2
+DET_ROI_POOL = ((2, 512, 38, 50), 256, 800, 608)         # Fast R-CNN conv5
+DET_PSROI = ((1, 21 * 49, 38, 63), 300, 1000, 600)       # R-FCN's head
+DET_DCN = (2, 512, 25, 42)                               # ResNet-50 res5
+DET_SSD_MAP = (32, 256, 38, 38)                          # SSD's first map
+
+
+def ssd300(mx, classes=DET_CLASSES):
+    """SSD300 over the port's resnet50_v1 body (a HybridBlock)."""
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    class SSD(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.body = vision.resnet50_v1().features   # stem, 4 stages, GAP
+            self.extras = nn.HybridSequential()
+            for mid, out, stride, pad in DET_EXTRAS:
+                blk = nn.HybridSequential()
+                blk.add(nn.Conv2D(mid, 1, activation="relu"),
+                        nn.Conv2D(out, 3, strides=stride, padding=pad,
+                                  activation="relu"))
+                self.extras.add(blk)
+            self.cls_heads = nn.HybridSequential()
+            self.box_heads = nn.HybridSequential()
+            for sizes, ratios in zip(DET_SIZES, DET_RATIOS):
+                n = len(ratios) + 1
+                self.cls_heads.add(nn.Conv2D(n * (classes + 1), 3,
+                                             padding=1))
+                self.box_heads.add(nn.Conv2D(n * 4, 3, padding=1))
+
+        def forward(self, x):
+            feats, y = [], x
+            for i in range(8):                     # through stage 4
+                y = self.body[i](y)
+                if i >= 5:
+                    feats.append(y)
+            for blk in self.extras:
+                y = blk(y)
+                feats.append(y)
+            anchors, cls, box = [], [], []
+            b = x.shape[0]
+            for k, f in enumerate(feats):
+                s = (DET_SIZES[k] / 300,
+                     math.sqrt(DET_SIZES[k] * DET_SIZES[k + 1]) / 300)
+                anchors.append(mx.npx.multibox_prior(f, sizes=s,
+                                                     ratios=DET_RATIOS[k]))
+                cls.append(self.cls_heads[k](f).permute(0, 2, 3, 1).reshape(
+                    b, -1, classes + 1))
+                box.append(self.box_heads[k](f).permute(0, 2, 3, 1).reshape(
+                    b, -1))
+            return (mx.np.concatenate(anchors, axis=1),
+                    mx.np.concatenate(cls, axis=1),
+                    mx.np.concatenate(box, axis=1))
+
+    return SSD()
+
+
+def ssd_weights(net, seed):
+    """Numpy weights under the port's names: the ResNet body's as
+    :func:`resnet_weights` makes them, the extra and head convolutions
+    normal with He's std sqrt(2 / fan_in) (the heads 0.1x), biases 0."""
+    out = {f"body.{n}": v for n, v in resnet_weights(net.body, seed).items()}
+    rng = np.random.default_rng(seed + 1)
+    for name, p in net.collect_params().items():
+        if name.startswith("body."):
+            continue
+        shape = tuple(p.shape)
+        if name.endswith("bias"):
+            out[name] = np.zeros(shape, np.float32)
+            continue
+        std = math.sqrt(2.0 / int(np.prod(shape[1:])))
+        if "heads" in name:
+            std *= 0.1
+        out[name] = (rng.standard_normal(shape) * std).astype(np.float32)
+    return out
+
+
+def det_images(n, seed, size=DET_SIZE):
+    """n RGB images of 1..DET_MAX_OBJ axis-aligned rectangles of 20
+    classes, filled (even classes) or hollow (odd) in a class colour on
+    noise, as example/gluon/ssd.py:89-110 draws them; labels (n,
+    DET_MAX_OBJ, 5) of [cls, l, t, r, b] in [0, 1], padded with -1."""
+    rng = np.random.RandomState(seed)
+    colour = rng.uniform(0.3, 1.0, (DET_CLASSES, 3)).astype(np.float32)
+    imgs = (rng.rand(n, 3, size, size) * 0.1).astype(np.float32)
+    labels = np.full((n, DET_MAX_OBJ, 5), -1.0, np.float32)
+    for i in range(n):
+        for j in range(rng.randint(1, DET_MAX_OBJ + 1)):
+            w, h = rng.randint(size // 10, size // 2, 2)
+            x, y = rng.randint(0, size - w), rng.randint(0, size - h)
+            c = rng.randint(0, DET_CLASSES)
+            imgs[i, :, y:y + h, x:x + w] = colour[c][:, None, None]
+            if c % 2:
+                imgs[i, :, y + 3:y + h - 3, x + 3:x + w - 3] = 0.0
+            labels[i, j] = [c, x / size, y / size, (x + w) / size,
+                            (y + h) / size]
+    return imgs, labels
+
+
+def det_loss(mx, cls_pred, box_pred, loc_t, loc_m, cls_t, loss_fn):
+    """The example's loss (ssd.py:213-218)."""
+    c = cls_pred.shape[-1]
+    cls_l = loss_fn(cls_pred.reshape(-1, c), cls_t.reshape(-1))
+    w = (cls_t.reshape(-1) >= 0).float()
+    cls_l = (cls_l * w).sum() / mx.np.maximum(w.sum(), 1.0)
+    loc_l = (mx.np.abs((box_pred - loc_t) * loc_m)).sum() / \
+        mx.np.maximum(loc_m.sum(), 1.0)
+    return cls_l + loc_l
+
+
+class no_host_sync:
+    """``torch.cuda.set_sync_debug_mode("error")`` for the scope: an op
+    that waits for the card on the host raises."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+
+
+def event_ms(torch, fn, guard=False):
+    """(result, ms between two CUDA events around one call of fn): the
+    card's elapsed time, launch gaps included; with ``guard`` the call
+    runs under :class:`no_host_sync` (the wait for the end event after
+    it)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    with no_host_sync(torch) if guard else nullcontext():
+        out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def profiled_launches(torch, fn):
+    """(kernels and copies launched, their device ms summed) of one call
+    of fn, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(evs), sum(e.device_time_total for e in evs) / 1e3
+
+
+def _max_rel(torch, got, want):
+    """max |got - want| over 1 + max |want|, in f64."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if want.numel() == 0:
+        return 0.0
+    return ((got - want).abs().max() / (1 + want.abs().max())).item()
+
+
+def target_diffs(torch, got, want, anchors, labels):
+    """Anchors whose class target or mask differ between the card and its
+    CPU copy; allowed only where the anchor's best IoU with a ground
+    truth lies within DET_NEAR of 0.5 (the overlap and mining
+    thresholds)."""
+    from mxnet_tpu_torch.ops.contrib import _iou_corner
+
+    bad = []
+    g_cls, w_cls = got[2].cpu(), want[2]
+    g_m = got[1].cpu().reshape(g_cls.shape + (4,))[..., 0]
+    w_m = want[1].reshape(w_cls.shape + (4,))[..., 0]
+    diff = ((g_cls != w_cls) | (g_m != w_m)).nonzero().tolist()
+    for n, a in diff:
+        lab = labels[n][labels[n][:, 0] != -1]
+        iou = _iou_corner(anchors[0, a:a + 1].double().cpu(),
+                          lab[:, 1:5].double()).max().item()
+        print(f"  multibox_target: image {n} anchor {a} differs (card "
+              f"{g_cls[n, a].item()}, CPU {w_cls[n, a].item()}), its best "
+              f"IoU {iou:.9f}", flush=True)
+        if abs(iou - 0.5) >= DET_NEAR:
+            bad.append((n, a, iou))
+    return diff, bad
+
+
+def nms_diffs(torch, what, keep_got, keep_want, boxes, cls, thresh):
+    """Sorted rows kept on one side only of an NMS (``keep_got`` on the
+    card, ``keep_want`` on its CPU copy, (K,) bool; ``boxes`` (K, 4);
+    ``cls`` (K,) the rows' classes, or None where any row suppresses
+    any). A differing row is allowed only where its own IoU with a
+    higher-scored row of its class, kept on either side, lies within
+    DET_NEAR of ``thresh`` (a tie), or reaches ``thresh`` - DET_NEAR
+    with an earlier differing row allowed so (that row's kept state
+    differs, so it suppresses this one on one side only). Prints each
+    differing row with that IoU; returns (differing rows, rows not
+    allowed)."""
+    from mxnet_tpu_torch.ops.contrib import _iou_corner
+
+    kept = keep_got | keep_want
+    boxes = boxes.double()
+    diff = (keep_got != keep_want).nonzero().flatten().tolist()
+    allowed, bad = set(), []
+    for i in diff:
+        prev = kept[:i].clone()
+        if cls is not None:
+            prev &= cls[:i] == cls[i]
+        j = prev.nonzero().flatten()
+        iou = _iou_corner(boxes[i:i + 1], boxes[j])[0] if len(j) else \
+            boxes.new_zeros(0)
+        tie = (iou - thresh).abs() < DET_NEAR
+        late = torch.tensor([int(x) in allowed for x in j], dtype=torch.bool)
+        cascade = late & (iou >= thresh - DET_NEAR)
+        if tie.any():
+            k, why = int((iou - thresh).abs().argmin()), "a tie"
+        elif cascade.any():
+            k, why = int(cascade.nonzero()[0]), "after a differing row"
+        else:
+            k = int((iou - thresh).abs().argmin()) if len(j) else -1
+            why = "NOT ALLOWED"
+        near = f"row {int(j[k])} at IoU {iou[k].item():.9f}" if k >= 0 \
+            else "no earlier kept row"
+        print(f"  {what}: sorted row {i} kept on the "
+              f"{'card' if keep_got[i] else 'CPU'} only; {near} ({why})",
+              flush=True)
+        if why == "NOT ALLOWED":
+            bad.append(i)
+        else:
+            allowed.add(i)
+    return diff, bad
+
+
+def detection_diffs(torch, got, want, thresh, force_suppress=False):
+    """Images whose kept rows differ between the card's multibox_detection
+    (``got``) and its CPU copy's (``want``), each row held by
+    :func:`nms_diffs` (a suppressed row keeps its score and box, so the
+    class of a row kept on either side is the larger of the two ids).
+    Returns (differing images, (image, row) pairs not allowed)."""
+    diff, bad = [], []
+    for n in range(want.shape[0]):
+        g, w = got[n, :, 0].cpu(), want[n, :, 0]
+        if torch.equal(g, w):
+            continue
+        diff.append(n)
+        cls = None if force_suppress else torch.maximum(g, w)
+        _, b = nms_diffs(torch, f"multibox_detection image {n}", g >= 0,
+                         w >= 0, want[n, :, 2:6], cls, thresh)
+        bad += [(n, i) for i in b]
+    return diff, bad
+
+
+def det_train(torch, mx, card, wrappers, dev):
+    """Phase 16 (a): SSD300 trains DET_STEPS steps through the example's
+    loop; multibox_target runs with no host sync; K3 exactly once a
+    step; the loss falls. Returns the results, the net and step 0's
+    target inputs and outputs."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.convert import from_jax_params
+
+    t0 = time.perf_counter()
+    net = ssd300(mx)
+    net.initialize(device=dev)
+    imgs, labels = det_images(DET_B, SEED)
+    x = torch.from_numpy(imgs).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    with torch.no_grad():
+        anchors, cls_pred, box_pred = net(x[:1])     # completes the shapes
+    check(tuple(anchors.shape) == (1, DET_ANCHORS, 4)
+          and tuple(cls_pred.shape) == (1, DET_ANCHORS, DET_CLASSES + 1)
+          and tuple(box_pred.shape) == (1, DET_ANCHORS * 4),
+          f"SSD300 shapes {anchors.shape} {cls_pred.shape} {box_pred.shape}")
+    from_jax_params(ssd_weights(net, SEED + 16), net)
+    n_params = sum(p.data().numel() for p in net.collect_params().values())
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 2e-3})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    print(f"phase 16 SSD300: resnet50_v1 body, {DET_ANCHORS} anchors, "
+          f"{n_params} parameters on {dev}, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    losses, step_ms, tgt_ms = [], [], []
+    saved = None
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    with matmul_precision_scope("default"):
+        for step in range(DET_STEPS):
+            t0 = time.perf_counter()
+            with autograd.record():
+                anchors, cls_pred, box_pred = net(x)
+                with autograd.pause():
+                    cls_t = cls_pred.transpose(1, 2)
+                    ev[0].record()
+                    with no_host_sync(torch):
+                        tgt = mx.npx.multibox_target(
+                            anchors, y, cls_t, negative_mining_ratio=3.0)
+                    ev[1].record()
+                    loc_t, loc_m, cls_tgt = tgt
+                loss = det_loss(mx, cls_pred, box_pred, loc_t, loc_m,
+                                cls_tgt, loss_fn)
+            autograd.backward(loss)
+            trainer.step(1)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            tgt_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(loss))
+            if step == 0:
+                saved = (anchors.detach(), y, cls_t.detach().clone(),
+                         [t.clone() for t in tgt])
+        counts = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_launch, kern_ms = profiled_launches(
+            torch, lambda: mx.npx.multibox_target(
+                saved[0], saved[1], saved[2], negative_mining_ratio=3.0))
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    tail = float(np.mean(losses[-5:]))
+    check(tail < losses[0], f"SSD300 loss did not fall: {losses}")
+    expected = dict({k: 0 for k in wrappers}, cross_entropy_lse=DET_STEPS)
+    check(counts == expected, f"SSD300 launches {counts} != {expected}")
+    k3 = det_k3(torch, saved)
+    med = float(np.median(step_ms[2:]))
+    tmed = float(np.median(tgt_ms[2:]))
+    out = {"steps": DET_STEPS, "batch": DET_B, "anchors": DET_ANCHORS,
+           "parameters": n_params, "losses": losses,
+           "step_ms_median": med, "step_ms": step_ms,
+           "img_s": DET_B / med * 1e3, "max_memory_allocated": peak,
+           "multibox_target_ms_median": tmed,
+           "multibox_target_share": tmed / med,
+           "multibox_target_kernels": n_launch,
+           "multibox_target_kernel_ms": kern_ms,
+           "k3_launches_per_step": counts["cross_entropy_lse"] / DET_STEPS,
+           "k3": k3, "card": card}
+    print(f"phase 16 SSD300 train on {card}, default policy, B {DET_B}, "
+          f"Adam lr 2e-3: step_ms {med:.3f} (median of the last "
+          f"{DET_STEPS - 2}; range {min(step_ms[2:]):.3f}-"
+          f"{max(step_ms[2:]):.3f}), {out['img_s']:.1f} img/s, "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; loss "
+          f"{losses[0]:.4f} -> mean of the last 5 {tail:.4f}; K3 "
+          f"{out['k3_launches_per_step']:.0f} launch a step (the 21-class "
+          f"rows, its unaligned route)", flush=True)
+    print(f"  multibox_target: {tmed:.3f} ms a step between CUDA events "
+          f"(median; {100 * tmed / med:.1f}% of the step), {n_launch} "
+          f"kernels and copies summing {kern_ms:.3f} device ms "
+          f"(profiler), no host sync", flush=True)
+    return out, net, saved
+
+
+def det_k3(torch, saved):
+    """K3 at the SSD300 class loss's shape: step 0's (DET_B * DET_ANCHORS,
+    21) f32 logits (rows of 84 bytes, its unaligned route) and class
+    targets (-1 for ignored anchors), fused_lse against lse_plain and
+    cross_entropy_with_logits against the no_kernels loss at 1e-5,
+    timed against its byte bound and torch.logsumexp. The row is
+    phase 16's, not the kernels line's."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    c = DET_CLASSES + 1
+    x = saved[2].transpose(1, 2).reshape(-1, c).contiguous()
+    labels = saved[3][2].reshape(-1).long()
+    n = x.shape[0]
+    check((c * 4) % 16 != 0, f"({n}, {c}): rows of 16-byte multiples take "
+          "the vector route")
+    err = (kce.fused_lse(x) - kce.lse_plain(x)).abs().max().item()
+    with tnn.no_kernels():
+        pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
+    err = max(err, (kce.cross_entropy_with_logits(x, labels) - pnll
+                    ).abs().max().item())
+    row = measure(
+        "cross_entropy_lse", f"({n}, {c}) f32, SSD300 class loss, unaligned "
+        "rows", err, 1e-5, lambda i: kce.fused_lse(x),
+        lambda i: kce.lse_plain(x), lambda i: torch.logsumexp(x, -1),
+        4 * n * c + 4 * n, 4 * n * c)
+    print(f"  K3 at the SSD300 class loss: roofline share "
+          f"{row['bound_ms'] / row['ms']:.3f} of its byte bound", flush=True)
+    return row
+
+
+def det_eval(torch, mx, card, net, saved, dev):
+    """Phase 16 (b): step 0's targets and a held-out batch's detections on
+    the card against their CPU copies; recall at IoU 0.5 (printed);
+    box_nms over one image's 8732 decoded boxes and bipartite_matching
+    of its anchors against its ground truths, with no host sync."""
+    from mxnet_tpu_torch.base import matmul_precision_scope
+
+    out = {}
+    anchors, y, cls_t, tgt = saved
+    k = DET_CPU_IMAGES
+    want = mx.npx.multibox_target(anchors.cpu(), y[:k].cpu(),
+                                  cls_t[:k].cpu(), negative_mining_ratio=3.0)
+    diff, bad = target_diffs(torch, [t[:k] for t in tgt], want,
+                             anchors, y[:k].cpu())
+    err = _max_rel(torch, tgt[0][:k], want[0])
+    check(not bad, f"multibox_target: card and CPU differ at {bad}")
+    check(err <= DET_EW, f"multibox_target offsets {err:.3e} > {DET_EW}")
+    out["target"] = {"differing": len(diff), "loc_err": err}
+    print(f"phase 16 multibox_target on the card against the CPU copy "
+          f"({k} images): class targets and masks differ at {len(diff)} "
+          f"anchors, offsets {err:.3e} of 1 + the largest", flush=True)
+    imgs, labels = det_images(DET_B, SEED + 1)
+    x = torch.from_numpy(imgs).to(dev)
+    with matmul_precision_scope("default"), torch.no_grad():
+        anchors, cls_pred, box_pred = net(x)
+        probs = mx.npx.softmax(cls_pred, axis=-1).transpose(1, 2)
+        probs, box_pred = probs.contiguous(), box_pred.contiguous()
+        def detect():
+            return mx.npx.multibox_detection(probs, box_pred, anchors,
+                                             **DET_THRESH)
+
+        dets, ms = event_ms(torch, detect, guard=True)
+        event_ms(torch, detect)
+        _, ms2 = event_ms(torch, detect)
+        n_launch, kern_ms = profiled_launches(torch, detect)
+    want = mx.npx.multibox_detection(probs[:k].cpu(), box_pred[:k].cpu(),
+                                     anchors.cpu(), **DET_THRESH)
+    diff, bad = detection_diffs(torch, dets[:k], want,
+                                DET_THRESH["nms_threshold"])
+    # a suppressed row keeps its score and box: those columns agree on
+    # every row, whatever the NMS kept
+    err = _max_rel(torch, dets[:k, :, 1:], want[:, :, 1:])
+    check(not bad, f"multibox_detection: card and CPU differ at (image, "
+          f"sorted row) {bad} with no IoU within {DET_NEAR} of the "
+          "threshold")
+    check(err <= DET_EW, f"multibox_detection values {err:.3e} > {DET_EW}")
+    check(tuple(dets.shape) == (DET_B, DET_ANCHORS, 6)
+          and torch.isfinite(dets).all().item(), "detections")
+    hits, total = 0, 0
+    d_host = dets.cpu()
+    for i in range(DET_B):
+        gt = torch.from_numpy(labels[i][labels[i][:, 0] >= 0])
+        kept = d_host[i][d_host[i][:, 0] >= 0]
+        total += len(gt)
+        if len(kept):
+            iou = mx.npx.box_iou(kept[:, 2:6], gt[:, 1:5])
+            hits += int((iou.max(0).values >= 0.5).sum())
+    n_kept = int((d_host[..., 0] >= 0).sum())
+    out["detection"] = {"ms_first": ms, "ms": ms2, "kernels": n_launch,
+                        "kernel_ms": kern_ms, "kept": n_kept,
+                        "recall_at_0.5": hits / max(total, 1),
+                        "differing_images": diff, "value_err": err}
+    print(f"phase 16 multibox_detection on {card} (B {DET_B}, "
+          f"{DET_THRESH}): {ms2:.3f} ms between CUDA events ({ms:.3f} the "
+          f"first call), {n_launch} kernels and copies summing "
+          f"{kern_ms:.3f} device ms, no host sync; {n_kept} rows kept; "
+          f"against the CPU copy ({k} images) {len(diff)} differ, values "
+          f"{err:.3e}; recall at IoU 0.5 {hits}/{total} = "
+          f"{hits / max(total, 1):.3f} (printed, not held)", flush=True)
+    # box_nms over image 0's decoded boxes, bipartite matching of its
+    # anchors against its ground truths
+    p = box_pred[0].reshape(-1, 4)
+    a = anchors[0]
+    aw, ah = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+    ax, ay = (a[:, 0] + a[:, 2]) * 0.5, (a[:, 1] + a[:, 3]) * 0.5
+    ox, oy = p[:, 0] * 0.1 * aw + ax, p[:, 1] * 0.1 * ah + ay
+    ow = torch.exp(p[:, 2] * 0.2) * aw / 2
+    oh = torch.exp(p[:, 3] * 0.2) * ah / 2
+    score, ids = probs[0, 1:].max(0)
+    rows = torch.stack([ids.float(), score, ox - ow, oy - oh, ox + ow,
+                        oy + oh], 1)
+    kept, ms = event_ms(torch, lambda: mx.npx.box_nms(
+        rows, overlap_thresh=0.45, valid_thresh=0.01), guard=True)
+    want = mx.npx.box_nms(rows.cpu(), overlap_thresh=0.45, valid_thresh=0.01)
+    same = torch.equal(kept.cpu(), want)
+    if not same:
+        # a suppressed row is all -1: the boxes of the sorted rows come
+        # from the input, sorted as box_nms sorts them
+        rows_c = rows.cpu()
+        order = torch.argsort(-rows_c[:, 1], stable=True)
+        keep_g, keep_w = kept[:, 1].cpu() >= 0, want[:, 1] >= 0
+        both = keep_g & keep_w
+        check(torch.equal(kept.cpu()[both], want[both]),
+              "box_nms: a row kept on both sides differs")
+        _, bad = nms_diffs(torch, "box_nms", keep_g, keep_w,
+                           rows_c[order, 2:6], None, 0.45)
+        check(not bad, f"box_nms: card and CPU differ at sorted rows {bad} "
+              f"with no IoU within {DET_NEAR} of 0.45")
+    gt = y[0][y[0][:, 0] >= 0][:, 1:5]
+    score_m = mx.npx.box_iou(anchors[0], gt)
+    match, bms = event_ms(torch, lambda: mx.npx.bipartite_matching(
+        score_m, threshold=1e-12), guard=True)
+    want_m = mx.npx.bipartite_matching(score_m.cpu(), threshold=1e-12)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(match, want_m)),
+          "bipartite_matching: card and CPU differ")
+    out["graphs"] = det_graphs(torch, mx, card, saved, probs, box_pred,
+                               anchors, rows, score_m)
+    out["box_nms"] = {"rows": rows.shape[0], "ms": ms, "kept": int(
+        (kept[:, 0] >= 0).sum()), "equal_cpu": same}
+    out["bipartite_matching"] = {"shape": list(score_m.shape), "ms": bms}
+    print(f"phase 16 box_nms over {rows.shape[0]} boxes of one image: "
+          f"{ms:.3f} ms between CUDA events ({rows.shape[0]} sweep passes), "
+          f"{out['box_nms']['kept']} kept, equal to the CPU copy: {same}; "
+          f"bipartite_matching over {tuple(score_m.shape)}: {bms:.3f} ms, "
+          "equal to the CPU copy; no host sync in either", flush=True)
+    return out
+
+
+def graph_replay(torch, fn):
+    """Capture one call of ``fn`` in a torch.cuda.CUDAGraph (after a
+    warm-up call on a side stream, as torch's capture asks), replay it
+    once and return (the captured outputs, a tuple, after the replay;
+    the replay's ms between CUDA events)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    graph.replay()
+    _, ms = event_ms(torch, graph.replay)
+    return (outs if isinstance(outs, tuple) else (outs,)), ms
+
+
+def det_graphs(torch, mx, card, saved, probs, box_pred, anchors, rows,
+               score_m):
+    """The four detection ops, each captured in a CUDA graph and replayed
+    on :func:`det_eval`'s inputs: multibox_target (step 0's),
+    multibox_detection (the held-out batch), box_nms (image 0's 8732
+    decoded boxes) and bipartite_matching (its anchors against its
+    ground truths). The replay equals the eager call (class targets,
+    masks, kept ids and matches exactly, offsets, scores and boxes to
+    DET_EW), so none reads the card on the host; the replay's ms beside
+    the eager call's."""
+    s_anchors, y, cls_t, _ = saved
+    out = {}
+    cases = (
+        ("box_nms", lambda: mx.npx.box_nms(rows, overlap_thresh=0.45,
+                                           valid_thresh=0.01),
+         lambda e, g: (torch.equal(e[0][:, 0], g[0][:, 0]),
+                       _max_rel(torch, g[0], e[0]))),
+        ("bipartite_matching", lambda: mx.npx.bipartite_matching(
+            score_m, threshold=1e-12),
+         lambda e, g: (torch.equal(e[0], g[0]) and torch.equal(e[1], g[1]),
+                       0.0)),
+        ("multibox_target", lambda: mx.npx.multibox_target(
+            s_anchors, y, cls_t, negative_mining_ratio=3.0),
+         lambda e, g: (torch.equal(e[1], g[1]) and torch.equal(e[2], g[2]),
+                       _max_rel(torch, g[0], e[0]))),
+        ("multibox_detection", lambda: mx.npx.multibox_detection(
+            probs, box_pred, anchors, **DET_THRESH),
+         lambda e, g: (torch.equal(e[0][..., 0], g[0][..., 0]),
+                       _max_rel(torch, g[0][..., 1:], e[0][..., 1:]))))
+    for name, fn, held in cases:
+        eager, eager_ms = event_ms(torch, fn)
+        eager = eager if isinstance(eager, tuple) else (eager,)
+        got, ms = graph_replay(torch, fn)
+        exact, err = held(eager, got)
+        bitwise = all(torch.equal(a, b) for a, b in zip(eager, got))
+        check(exact and err <= DET_EW, f"{name}: the CUDA graph's replay "
+              f"against the eager call: ids and masks equal {exact}, "
+              f"values {err:.3e}")
+        out[name] = {"replay_ms": ms, "eager_ms": eager_ms,
+                     "value_err": err, "bitwise": bitwise}
+        print(f"phase 16 {name} captured in a CUDA graph on {card}: the "
+              f"replay {ms:.3f} ms between CUDA events against {eager_ms:.3f}"
+              f" eager; ids and masks equal, values {err:.3e} (bitwise "
+              f"{bitwise})", flush=True)
+        del got
+    return out
+
+
+def _op_case(torch, name, fn, args, cpu_args, tol, grad=None, cpu_fn=None):
+    """One detection-model op on the card: device and host ms
+    (:func:`time_ms`), held against the same op on CPU copies (a slice
+    where each output row depends only on its own inputs); with
+    ``grad`` (the indices of the inputs to differentiate) its backward
+    too, timed and held alike."""
+    with torch.no_grad():
+        dev_ms, host_ms = time_ms(lambda i: fn(*args), iters=10, warmup=2)
+    row = {"ms": dev_ms, "host_ms": host_ms}
+    got = fn(*[a[:c.shape[0]] if slicer else a for a, c, slicer in cpu_args])
+    want = (cpu_fn or fn)(*[c for _, c, _ in cpu_args])
+    row["err"] = max(_max_rel(torch, g, w) for g, w in zip(
+        got if isinstance(got, (list, tuple)) else [got],
+        want if isinstance(want, (list, tuple)) else [want]))
+    check(row["err"] <= tol, f"{name}: card against CPU {row['err']:.3e} "
+          f"> {tol}")
+    if grad is not None:
+        leaves = [a.detach().requires_grad_(i in grad)
+                  for i, a in enumerate(args)]
+        y = fn(*leaves)
+        g = torch.randn_like(y)
+        dx = [leaves[i] for i in grad]
+        bwd, _ = time_ms(lambda i: torch.autograd.grad(
+            y, dx, g, retain_graph=True), iters=5, warmup=1)
+        row["backward_ms"] = bwd
+        cl = [(a[:c.shape[0]] if s else a).detach().requires_grad_(i in grad)
+              for i, (a, c, s) in enumerate(cpu_args)]
+        cc = [c.detach().requires_grad_(i in grad)
+              for i, (_, c, _) in enumerate(cpu_args)]
+        yg = fn(*cl)
+        gy = torch.randn_like(yg)
+        got_g = torch.autograd.grad(yg, [cl[i] for i in grad], gy)
+        want_g = torch.autograd.grad((cpu_fn or fn)(*cc),
+                                     [cc[i] for i in grad], gy.cpu())
+        row["grad_err"] = max(_max_rel(torch, a, b)
+                              for a, b in zip(got_g, want_g))
+        check(row["grad_err"] <= tol, f"{name} gradient: card against CPU "
+              f"{row['grad_err']:.3e} > {tol}")
+    print(f"  {name}: {dev_ms:.4f} device ms ({host_ms:.4f} host)"
+          + (f", backward {row['backward_ms']:.4f}" if grad else "")
+          + f"; against the CPU copy {row['err']:.2e}"
+          + (f", gradient {row['grad_err']:.2e}" if grad else ""),
+          flush=True)
+    return row
+
+
+def _rois(rng, n, batch, width, height):
+    """(n, 5) rois [batch, x1, y1, x2, y2] inside a width x height image."""
+    w = rng.uniform(16, width / 3, n)
+    h = rng.uniform(16, height / 3, n)
+    x = rng.uniform(0, width - w)
+    y = rng.uniform(0, height - h)
+    return np.stack([rng.randint(0, batch, n), x, y, x + w, y + h],
+                    1).astype(np.float32)
+
+
+def det_ops(torch, mx, card, dev):
+    """Phase 16 (c): the detection-model ops at published shapes, and the
+    control flow, on the card against CPU copies, under highest."""
+    from mxnet_tpu_torch.gluon.contrib import cnn
+    from mxnet_tpu_torch.convert import from_jax_params
+
+    npx = mx.npx
+    rng = np.random.RandomState(SEED + 16)
+    out = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def case(name, fn, args, sliced, tol=DET_EW, grad=None, rows=None):
+        """``sliced``: per argument, whether the CPU copy takes its first
+        ``rows`` rows."""
+        cpu_args = []
+        for a, s in zip(args, sliced):
+            c = a[:rows] if s else a
+            cpu_args.append((a, c.cpu(), s))
+        out[name] = _op_case(torch, name, fn, args, cpu_args, tol, grad)
+
+    print(f"phase 16 detection-model ops on {card} (highest), each held "
+          "against its CPU copy:", flush=True)
+    def roi_inputs(spec):
+        shape, n, width, height = spec
+        return (t(rng.randn(*shape).astype(np.float32)),
+                t(_rois(rng, n, shape[0], width, height)))
+
+    # Mask R-CNN's FPN P2 at 800x1333: roi_align with its gradient
+    data, rois = roi_inputs(DET_ROI_ALIGN)
+    case("roi_align", lambda d, r: npx.roi_align(
+        d, r, (7, 7), spatial_scale=0.25, sample_ratio=2, aligned=True),
+        [data, rois], [False, True], grad=(0,), rows=DET_CPU_ROIS)
+    # Fast R-CNN's VGG16 conv5
+    data, rois = roi_inputs(DET_ROI_POOL)
+    case("roi_pooling", lambda d, r: npx.roi_pooling(d, r, (7, 7), 1 / 16),
+         [data, rois], [False, True], rows=DET_CPU_ROIS)
+    # R-FCN's head
+    data, rois = roi_inputs(DET_PSROI)
+    case("psroi_pooling", lambda d, r: npx.psroi_pooling(
+        d, r, 21, 7, 1 / 16), [data, rois], [False, True],
+        rows=DET_CPU_ROIS)
+    # DCN at ResNet-50 res5 of an 800x1333 input
+    nb, c, h, wd = DET_DCN
+    data = t(rng.randn(nb, c, h, wd).astype(np.float32))
+    off = t((rng.randn(nb, 18, h, wd) * 2).astype(np.float32))
+    mask = t(rng.rand(nb, 9, h, wd).astype(np.float32))
+    w = t((rng.randn(c, c, 3, 3) * 0.02).astype(np.float32))
+    b = t(rng.randn(c).astype(np.float32))
+    case("deformable_convolution", lambda d, o, w_, b_:
+         npx.deformable_convolution(d, o, w_, b_, kernel=(3, 3), pad=1),
+         [data, off, w, b], [True, True, False, False], tol=DET_DEF,
+         grad=(0, 1), rows=1)
+    case("modulated_deformable_convolution", lambda d, o, m, w_:
+         npx.modulated_deformable_convolution(d, o, m, w_, kernel=(3, 3),
+                                              pad=1),
+         [data, off, mask, w], [True, True, True, False], tol=DET_DEF,
+         grad=(0, 1, 2), rows=1)
+    blk = cnn.DeformableConvolution(c, 3, padding=1)
+    blk.initialize(device=dev)
+    with torch.no_grad():
+        blk(data)
+    from_jax_params({n: (rng.randn(*p.shape) * 0.02).astype(np.float32)
+                     for n, p in blk.collect_params().items()}, blk)
+    cblk = cnn.DeformableConvolution(c, 3, padding=1)
+    cblk.initialize(device="cpu")
+    from_jax_params({n: p.data().detach().cpu().numpy()
+                     for n, p in blk.collect_params().items()}, cblk)
+    out["DeformableConvolution"] = _op_case(
+        torch, "DeformableConvolution block", blk, [data],
+        [(data, data[:1].cpu(), True)], DET_DEF, cpu_fn=cblk)
+    # box ops at SSD's sizes
+    x = t(rng.randn(*DET_SSD_MAP).astype(np.float32))
+    case("bilinear_resize_2d", lambda d: npx.bilinear_resize_2d(
+        d, 2 * x.shape[2], 2 * x.shape[3]), [x], [True], rows=4)
+    gamma = t(rng.rand(x.shape[1]).astype(np.float32) + 0.5)
+    beta = t(rng.randn(x.shape[1]).astype(np.float32))
+    case("sync_batch_norm", lambda d, g, b_: mx.ops.contrib.sync_batch_norm(
+        d, g, b_, None, None)[0], [x, gamma, beta], [False] * 3)
+    out["control_flow"] = det_control_flow(torch, mx, dev, rng)
+    return out
+
+
+def det_control_flow(torch, mx, dev, rng):
+    """foreach over an LSTM-style cell (DET_LSTM) forward and backward,
+    held on a CPU copy of its first rows; while_loop and cond on the card
+    eagerly and inside a hybridized block's CUDA graph (no host read in
+    the capture), against their CPU results."""
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    npx = mx.npx
+    u, b, steps = DET_LSTM
+    w = torch.from_numpy((rng.randn(2 * u, 4 * u) / math.sqrt(2 * u)
+                          ).astype(np.float32))
+    xs = torch.from_numpy(rng.randn(steps, b, u).astype(np.float32))
+    h0 = torch.from_numpy(rng.randn(b, u).astype(np.float32))
+
+    def run(w_, xs_, h_, c_):
+        def body(x, st):
+            h, c = st
+            z = torch.cat([x, h], 1) @ w_
+            i, f, o, g = z.chunk(4, 1)
+            c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h2 = torch.sigmoid(o) * torch.tanh(c2)
+            return h2, [h2, c2]
+        outs, (h, c) = npx.foreach(body, xs_, [h_, c_])
+        return outs.sum() + (h * c).sum()
+
+    card = [a.to(dev).requires_grad_() for a in (xs, h0, h0 * 0.5)]
+    wd = w.to(dev)
+    with torch.no_grad():
+        fwd, fhost = time_ms(lambda i: run(wd, *card), iters=3, warmup=1)
+    loss = run(wd, *card)
+    bwd, _ = time_ms(lambda i: torch.autograd.grad(loss, card,
+                                                   retain_graph=True),
+                     iters=3, warmup=1)
+    k = 4
+    sl = [a[:, :k] if a.dim() == 3 else a[:k] for a in card]
+    sl = [a.detach().requires_grad_() for a in sl]
+    got = torch.autograd.grad(run(wd, *sl), sl)
+    cp = [a.detach().cpu().requires_grad_() for a in sl]
+    want = torch.autograd.grad(run(w, *cp), cp)
+    err = max(_max_rel(torch, g, v) for g, v in zip(got, want))
+    check(err <= DET_DEF, f"foreach gradients: card against CPU {err:.3e}")
+    print(f"  foreach over an LSTM-style cell of {u} units, B {b}, "
+          f"{steps} steps: forward {fwd:.3f} device ms ({fhost:.3f} host), "
+          f"backward {bwd:.3f}; gradients against the CPU copy ({k} rows) "
+          f"{err:.2e}", flush=True)
+
+    class Loop(HybridBlock):
+        def forward(self, s):
+            acc, (_, fin) = npx.while_loop(
+                lambda i, v: i < 6.5, lambda i, v: ([v * 1.5],
+                                                    [i + 1, v + 1]),
+                [torch.zeros((), device=s.device), s], 10)
+            return npx.cond(lambda v: v.sum() > 0, lambda v: v * 10,
+                            lambda v: v - 10, [fin]) + acc.sum(0)
+
+    s = torch.from_numpy(rng.randn(64).astype(np.float32))
+    want = Loop()(s)
+    net = Loop()
+    net.initialize(device=dev)
+    eager = net(s.to(dev))
+    net.hybridize()
+    first = net(s.to(dev))
+    replay = net(s.to(dev))
+    for what, got in (("eager", eager), ("captured", first),
+                      ("replayed", replay)):
+        check(_max_rel(torch, got, want) <= DET_EW,
+              f"while_loop/cond {what} against the CPU")
+    neg = net(-s.abs().to(dev) - 20)
+    check(_max_rel(torch, neg, Loop()(-s.abs() - 20)) <= DET_EW,
+          "cond's else branch replayed")
+    check(net.captures >= 1 and net.replays >= 2,
+          f"while_loop/cond: {net.captures} graphs captured and "
+          f"{net.replays} replays, so the block ran eagerly")
+    print(f"  while_loop and cond: eager, captured ({net.captures} graphs) "
+          f"and replayed ({net.replays}) equal the CPU's", flush=True)
+    return {"foreach_ms": fwd, "foreach_host_ms": fhost,
+            "foreach_backward_ms": bwd, "foreach_grad_err": err,
+            "captures": net.captures, "replays": net.replays}
+
+
+def detect_phase(torch, card, wrappers):
+    """Phase 16: SSD300 training and decoding (:func:`det_train`,
+    :func:`det_eval`), the detection-model ops and the control flow
+    (:func:`det_ops`)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import matmul_precision_scope
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {}
+    out["train"], net, saved = det_train(torch, mx, card, wrappers, dev)
+    out["eval"] = det_eval(torch, mx, card, net, saved, dev)
+    del net, saved
+    torch.cuda.empty_cache()
+    with matmul_precision_scope("highest"):
+        out["ops"] = det_ops(torch, mx, card, dev)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 16 took {out['seconds']:.1f} s on {card}", flush=True)
     return out
 
 
@@ -7234,6 +8124,11 @@ def main(argv):
         write_results(results)
         print("chip_smoke --spec: phases 1, 2 at the spec shapes and 10 "
               "passed")
+        return 0
+    if "--detect" in argv:       # phases 1 and 16 only: no result line
+        results["detect"] = detect_phase(torch, card, kernel_wrappers())
+        write_results(results)
+        print("chip_smoke --detect: phases 1 and 16 passed")
         return 0
     if "--array" in argv:        # phases 1 and 15 only: no result line
         results["array"] = array_phase(torch, card, kernel_wrappers())
@@ -7515,6 +8410,10 @@ def main(argv):
     # -- phase 15: the array layer ---------------------------------------------
     torch.cuda.empty_cache()
     results["array"] = array_phase(torch, card, wrappers)
+
+    # -- phase 16: SSD300 detection and the contrib ops ---------------------
+    torch.cuda.empty_cache()
+    results["detect"] = detect_phase(torch, card, wrappers)
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

@@ -1,6 +1,8 @@
 """Contributed modules of the PyTorch port (counterpart of
 ``mxnet_tpu/contrib``): the decode-time half of :mod:`.quantization`,
-and :mod:`.passes` (``optimize_for``'s backends)."""
-from . import passes, quantization  # noqa: F401
+:mod:`.passes` (``optimize_for``'s backends), and :mod:`.ndarray`
+(``mx.contrib.nd``, the contrib ops' aliases)."""
+from . import ndarray, passes, quantization  # noqa: F401
+from . import ndarray as nd  # noqa: F401
 
-__all__ = ["passes", "quantization"]
+__all__ = ["ndarray", "nd", "passes", "quantization"]

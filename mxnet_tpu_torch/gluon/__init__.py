@@ -1,10 +1,11 @@
 """Gluon of the PyTorch port: Block and Parameter, layers, losses,
-metrics, the Trainer and the model zoo."""
+metrics, the Trainer, the model zoo and ``contrib.cnn``."""
 from .parameter import Constant, DeferredInitializationError, Parameter
 from .block import Block, HybridBlock, SymbolBlock
 from . import nn, loss, metric, model_zoo
+from . import contrib
 from .trainer import Trainer
 
 __all__ = ["Parameter", "Constant", "DeferredInitializationError", "Block",
            "HybridBlock", "SymbolBlock", "nn", "loss", "metric", "model_zoo",
-           "Trainer"]
+           "contrib", "Trainer"]

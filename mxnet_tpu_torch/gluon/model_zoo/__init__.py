@@ -1,4 +1,5 @@
 """Model zoo of the PyTorch port."""
 from . import bert, generation, vision
+from .vision import get_model
 
-__all__ = ["bert", "generation", "vision"]
+__all__ = ["bert", "generation", "vision", "get_model"]

@@ -515,15 +515,35 @@ def _ldexp(x, i):
                          _tt(i, x).to(x.dtype))
 
 
+def _numbers_as_tensors(fn):
+    """``fn`` that takes no Python number (torch's maximum, atan2, ...):
+    a number beside a tensor becomes a 0-d tensor of the dtype torch
+    promotes the pair to, made on the tensor's device by a fill."""
+    def op(a, b):
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            return fn(a, b)
+        t = a if isinstance(a, torch.Tensor) else b
+        dt = torch.result_type(a, b)
+        a, b = (x.to(dt) if isinstance(x, torch.Tensor)
+                else torch.full((), x, dtype=dt, device=t.device)
+                for x in (a, b))
+        return fn(a, b)
+    return op
+
+
 _BINARY = {
     "add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
     "divide": torch.true_divide, "true_divide": torch.true_divide,
     "floor_divide": torch.floor_divide, "mod": torch.remainder,
     "remainder": torch.remainder, "fmod": torch.fmod, "power": torch.pow,
-    "maximum": torch.maximum, "minimum": torch.minimum,
-    "fmax": torch.fmax, "fmin": torch.fmin, "arctan2": torch.atan2,
-    "hypot": torch.hypot, "copysign": torch.copysign,
-    "logaddexp": torch.logaddexp, "logaddexp2": _logaddexp2,
+    "maximum": _numbers_as_tensors(torch.maximum),
+    "minimum": _numbers_as_tensors(torch.minimum),
+    "fmax": _numbers_as_tensors(torch.fmax),
+    "fmin": _numbers_as_tensors(torch.fmin),
+    "arctan2": _numbers_as_tensors(torch.atan2),
+    "hypot": _numbers_as_tensors(torch.hypot), "copysign": torch.copysign,
+    "logaddexp": _numbers_as_tensors(torch.logaddexp),
+    "logaddexp2": _logaddexp2,
     "logical_and": torch.logical_and,
     "logical_or": torch.logical_or, "logical_xor": torch.logical_xor,
     "equal": torch.eq, "not_equal": torch.ne, "less": torch.lt,
@@ -532,7 +552,8 @@ _BINARY = {
     "bitwise_xor": torch.bitwise_xor,
     "left_shift": torch.bitwise_left_shift,
     "right_shift": torch.bitwise_right_shift,
-    "gcd": torch.gcd, "lcm": torch.lcm,
+    "gcd": _numbers_as_tensors(torch.gcd),
+    "lcm": _numbers_as_tensors(torch.lcm),
     "float_power": _float_power,
     "heaviside": _same_dtype(torch.heaviside),
     "nextafter": _same_dtype(torch.nextafter),

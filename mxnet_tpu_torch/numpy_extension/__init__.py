@@ -5,10 +5,12 @@ each forwarding to :mod:`~mxnet_tpu_torch.ops.nn` as the reference's
 there is no dispatch layer between. ``dropout`` reads the training flag
 of :mod:`~mxnet_tpu_torch.autograd`, as the reference's does.
 
-Not here yet (``ROADMAP.md`` §1 item 4): the vision and detection ops of
-``ops/contrib.py`` and the rest of that module's ``npx`` names, and
-``foreach``/``while_loop``/``cond``. The reference's key plumbing
-(``rng_scope``, ``functional_mode``) has
+The contrib family (ROI, box, SSD, deformable and the small probes) is
+:mod:`~mxnet_tpu_torch.ops.contrib`'s functions themselves, and
+``foreach``/``while_loop``/``cond`` are :mod:`.control_flow`'s.
+``sync_batch_norm`` reads the training flag and writes the moving
+statistics in place while training, as the reference's does. The
+reference's key plumbing (``rng_scope``, ``functional_mode``) has
 :func:`~mxnet_tpu_torch.ops.nn.using_generator` as its counterpart, and
 its TPU helpers (``tpu``, ``num_tpus``) none.
 
@@ -29,9 +31,17 @@ import torch.nn.functional as F
 from .. import numpy as _np
 from ..autograd import is_training
 from ..base import MXNetError
-from ..context import cpu, current_context, gpu  # noqa: F401
+from ..context import cpu, current_context, gpu, num_gpus  # noqa: F401
 from ..ndarray.ndarray import waitall  # noqa: F401
+from ..ops import contrib as _contrib
 from ..ops import nn as _nn
+from ..ops.contrib import (  # noqa: F401
+    all_finite, allclose, bilinear_resize_2d, bipartite_matching, box_iou,
+    box_nms, count_sketch, deformable_convolution, gradientmultiplier,
+    hawkes_ll, index_array, khatri_rao, modulated_deformable_convolution,
+    multi_all_finite, multi_sum_sq, multibox_detection, multibox_prior,
+    multibox_target, nnz, psroi_pooling, quadratic, roi_align, roi_pooling,
+    round_ste, sign_ste)
 from ..serialization import load, save  # noqa: F401
 from ..util import is_np_array, reset_np, set_np, use_np  # noqa: F401
 
@@ -55,7 +65,15 @@ __all__ = ["fully_connected", "activation", "convolution", "deconvolution",
            "to_dlpack_for_write", "from_dlpack", "seed", "bernoulli",
            "uniform_n", "normal_n", "random", "cpu", "gpu",
            "current_context", "num_gpus", "is_np_array", "set_np",
-           "reset_np", "use_np"]
+           "reset_np", "use_np", "roi_pooling", "roi_align", "count_sketch",
+           "sync_batch_norm", "box_iou", "box_nms", "bipartite_matching",
+           "allclose", "index_array", "multibox_prior",
+           "deformable_convolution", "modulated_deformable_convolution",
+           "hawkes_ll", "round_ste", "sign_ste", "khatri_rao", "quadratic",
+           "all_finite", "multi_all_finite", "multi_sum_sq", "nnz",
+           "bilinear_resize_2d", "psroi_pooling", "gradientmultiplier",
+           "multibox_target", "multibox_detection", "foreach", "while_loop",
+           "cond"]
 
 
 def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
@@ -291,10 +309,6 @@ def slice(data, begin, end, step=None):  # noqa: A001 - reference op name
 def shape_array(data):
     return torch.tensor(tuple(data.shape), dtype=torch.int64,
                         device=data.device)
-
-
-def num_gpus():
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 # ---------------------------------------------------------------------------
@@ -541,5 +555,25 @@ def adaptive_avg_pool2d(data, output_size):
     return _nn.adaptive_avg_pool2d(data, output_size)
 
 
+def sync_batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                    momentum=0.9, axis_name=None):
+    """BatchNorm over the batch statistics while
+    :func:`~mxnet_tpu_torch.autograd.is_training`, writing the
+    momentum-updated statistics into ``moving_mean`` and ``moving_var``
+    in place (the reference's aux states); with the moving statistics
+    otherwise. Returns (out, mean_used, var_used). An ``axis_name``
+    raises: the port has no device mesh yet."""
+    training = is_training()
+    out, mean, var, new_mm, new_mv = _contrib.sync_batch_norm(
+        x, gamma, beta, moving_mean, moving_var, eps=eps, momentum=momentum,
+        axis_name=axis_name, training=training)
+    if training:
+        with torch.no_grad():
+            moving_mean.copy_(new_mm)
+            moving_var.copy_(new_mv)
+    return out, mean, var
+
+
 from . import random  # noqa: E402
+from .control_flow import cond, foreach, while_loop  # noqa: E402,F401
 from .random import bernoulli, normal_n, seed, uniform_n  # noqa: E402,F401

@@ -30,25 +30,12 @@ from mxnet_tpu_torch.base import MXNetError
 jnpx, tnpx = jmx.npx, tmx.npx
 
 _IMPORT = "an import of the reference module, not its API"
-_CONTRIB = ("waits on ROADMAP.md §1 item 4: ops/contrib.py's vision, "
-            "detection and remaining ops")
-_CONTROL = ("waits on ROADMAP.md §1 item 4: numpy_extension/control_flow.py")
 _KEYS = ("JAX PRNG-key plumbing; the port's draws take "
          "ops.nn.generator, scoped by ops.nn.using_generator")
 _TPU = "a TPU/XLA-only helper"
 EXCLUDED = {
     "numpy_extension": dict(
-        {n: _CONTRIB for n in (
-            "all_finite", "allclose", "bilinear_resize_2d",
-            "bipartite_matching", "box_iou", "box_nms", "count_sketch",
-            "deformable_convolution", "gradientmultiplier", "hawkes_ll",
-            "index_array", "khatri_rao", "modulated_deformable_convolution",
-            "multi_all_finite", "multi_sum_sq", "multibox_detection",
-            "multibox_prior", "multibox_target", "nnz", "psroi_pooling",
-            "quadratic", "roi_align", "roi_pooling", "round_ste",
-            "sign_ste", "sync_batch_norm")},
-        **{n: _CONTROL for n in ("cond", "foreach", "while_loop")},
-        **{n: _IMPORT for n in ("apply_op", "dtype_from_any", "ndarray")},
+        {n: _IMPORT for n in ("apply_op", "dtype_from_any", "ndarray")},
         **{n: _KEYS for n in ("functional_mode", "rng_scope")},
         **{n: _TPU for n in ("tpu", "num_tpus")}),
     "numpy_extension.random": {"new_key": _KEYS},

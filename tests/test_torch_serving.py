@@ -279,7 +279,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     optimize_for folds its BatchNorm, and torch.func.grad of its
     functionalize fn runs; the array layer's modules (np with linalg, fft
     and random, npx with its random, util, the new initializers) run a
-    few functions each."""
+    few functions each; the detection slice's modules (ops.contrib,
+    control_flow, dispatch, contrib.nd, gluon.contrib.cnn) run an SSD
+    target, decode and NMS, a deformable block and the control flow,
+    under a CPU device scope, with nd's fallback to np and
+    model_zoo.get_model."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -466,6 +470,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "w = torch.empty(4)\n"
         "mxnet_tpu_torch.init.LSTMBias(2.0).init_array('b', w)\n"
         "assert w.tolist() == [0, 2, 0, 0]\n"
+        "from mxnet_tpu_torch.ops import contrib as oc, dispatch\n"
+        "from mxnet_tpu_torch.numpy_extension import control_flow\n"
+        "from mxnet_tpu_torch.gluon.contrib import cnn\n"
+        "with mxnet_tpu_torch.cpu():\n"
+        "    anc = npx.multibox_prior(mnp.zeros((1, 1, 4, 4)), (0.3, 0.5),"
+        " (1, 2))\n"
+        "    lab = torch.tensor([[[0, .1, .1, .5, .6], [-1] * 5]])\n"
+        "    t = mxnet_tpu_torch.contrib.nd.MultiBoxTarget(anc, lab,"
+        " torch.randn(1, 3, 48), negative_mining_ratio=3.0)\n"
+        "    d = npx.multibox_detection(torch.softmax(torch.randn(1, 3, 48),"
+        " 1), torch.zeros(1, 192), anc, nms_topk=10)\n"
+        "    k = oc.box_nms(torch.cat([torch.rand(6, 2), anc[0, :6]], 1))\n"
+        "    blk = cnn.ModulatedDeformableConvolution(4, 3, padding=1)\n"
+        "    blk.initialize()\n"
+        "    o = blk(mnp.ones((1, 2, 5, 5)))\n"
+        "    f, _ = npx.foreach(lambda x, s: (x + s, s), mnp.ones((3, 2)),"
+        " mnp.zeros(2))\n"
+        "assert t[2].shape == (1, 48) and d.shape == (1, 48, 6)\n"
+        "assert k.shape == (6, 6) and o.device.type == 'cpu' and"
+        " f.shape == (3, 2)\n"
+        "assert mxnet_tpu_torch.nd.dot is mnp.dot and"
+        " dispatch.apply_op(torch.neg, [f]).shape == (3, 2)\n"
+        "assert mxnet_tpu_torch.gluon.model_zoo.get_model('resnet18_v1')\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
