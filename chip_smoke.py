@@ -639,14 +639,14 @@ def use_tc_bound(row, nbytes, flops, dtype, passes=3):
 
 
 def measure(name, case, err, tol, kernel, plain, library, nbytes, flops,
-            n_inputs=1, plain_iters=20):
+            n_inputs=1, plain_iters=20, iters=100):
     """Check one kernel's error against its tolerance, time it, its plain
     version and (where there is one) the library call, and return the
     row of the kernels line (plus the case and the host time per call)."""
     check(err <= tol, f"{name} {case}: max err {err} > {tol}")
-    ms, call_ms = time_ms(kernel, n_inputs)
+    ms, call_ms = time_ms(kernel, n_inputs, iters=iters)
     plain_ms, _ = time_ms(plain, n_inputs, iters=plain_iters)
-    lib_ms = time_ms(library, n_inputs)[0] if library else None
+    lib_ms = time_ms(library, n_inputs, iters=iters)[0] if library else None
     bms, by = bound_ms(nbytes, flops)
     lib_txt = "null" if lib_ms is None else f"{lib_ms:.5f}"
     print(f"{name} {case}: max_abs_err {err:.3e} (tol {tol:g}) ms {ms:.5f} "
@@ -1334,6 +1334,217 @@ def flash_case(torch, kfa, q, k, v, go, causal, policy="highest",
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
 
 
+# K3's rows (phases 2 and 16). Inputs under twice the H100's 50 MB L2 are
+# cycled over as many input sets as make twice the L2 (at most
+# K3_MAX_SETS), and each timed loop runs at least one call per set, so
+# that the kernel reads its logits from device memory as a train step
+# does. K3_MAX_SETS sets of an input under about 100 KB stay under twice
+# the L2, and those of one under about 50 KB fit in it: their rows print
+# as partly L2-resident or as L2-resident (launch-bound at such sizes).
+# K3_TOL: an lse of V exponentials summed in another order, a few f32
+# ulps of values near 12
+L2_BYTES = 50 * 2 ** 20
+K3_MAX_SETS = 1024
+K3_TOL = 1e-5
+
+
+def k3_sets(torch, randn, n, v, dtype, first=None):
+    """(sets, n, v) input sets of ``dtype``: ``first`` (or a draw) and
+    draws of ``randn(*shape)``, as many sets as :data:`K3_MAX_SETS` and
+    twice the L2 allow."""
+    size = torch.empty((), dtype=dtype).element_size()
+    sets = max(1, min(K3_MAX_SETS, -(-2 * L2_BYTES // (n * v * size))))
+    xs = (randn(sets, n, v) * 2.0).to(dtype)
+    if first is not None:
+        xs[0].copy_(first)
+    return xs
+
+
+def k3_residence(data):
+    """How much of ``data`` bytes of input sets a timed loop finds in the
+    L2, as a row's label."""
+    if data < L2_BYTES:
+        return " (L2-resident: every set fits in the L2)"
+    if data < 2 * L2_BYTES:
+        return " (partly L2-resident: under twice the L2)"
+    return ""
+
+
+def k3_direct(torch, x, route):
+    """K3's kernel of ``route`` on x (the first design, "block", or a
+    route lse_route does not give x), for comparison: not a launch of
+    the wrapper, whose count does not move."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    lse = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = kce.lse_launch(_build.load("cross_entropy"), route, x, lse,
+                             _build.stream_ptr(x.device))
+    _build.check(err, f"cross_entropy_lse {route} route")
+    return lse
+
+
+def k3_case(torch, xs, case, route, labels=None, resident=False):
+    """K3 on the input sets ``xs`` (sets, N, V): ``lse_route`` must give
+    ``route``; fused_lse and the first design ("block") against lse_plain
+    at K3_TOL on set 0, and cross_entropy_with_logits against the
+    no_kernels loss where ``labels`` are given. Then timed over the sets
+    beside its byte bound, lse_plain and torch.logsumexp (in bf16 it
+    returns bf16), and in turns with the block route (route, block,
+    block, route); a row on the warp route also times the wide route,
+    which would take it past the rows route's cut. ``resident``: the
+    three times again on set 0 alone, which stays in L2 where it fits.
+    Returns the row."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    sets, n, v = xs.shape
+    x = xs[0]
+    dt = str(x.dtype)[6:]
+    got_route = kce.lse_route(x)
+    check(got_route == route, f"cross_entropy_lse ({n}, {v}) {dt}: route "
+          f"{got_route}, expected {route}")
+    want = kce.lse_plain(x)
+    err = (kce.fused_lse(x) - want).abs().max().item()
+    block_err = (k3_direct(torch, x, "block") - want).abs().max().item()
+    check(block_err <= K3_TOL, f"cross_entropy_lse ({n}, {v}) {dt} block "
+          f"route: max err {block_err}")
+    if labels is not None:
+        with tnn.no_kernels():
+            pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
+        err = max(err, (kce.cross_entropy_with_logits(x, labels) - pnll
+                        ).abs().max().item())
+    size = x.element_size()
+    iters = max(100, sets)
+    row = measure(
+        "cross_entropy_lse", case, err, K3_TOL, lambda i: kce.fused_lse(xs[i]),
+        lambda i: kce.lse_plain(xs[i]), lambda i: torch.logsumexp(xs[i], -1),
+        size * n * v + 4 * n, 4 * n * v, n_inputs=sets, iters=iters)
+    block_ms = [time_ms(lambda i: k3_direct(torch, xs[i], "block"), sets,
+                        iters)[0] for _ in range(2)]
+    again = time_ms(lambda i: kce.fused_lse(xs[i]), sets, iters)[0]
+    data = sets * n * v * size
+    row.update(k3_route=route, route_ms=[row["ms"], again], block_ms=block_ms,
+               block_err=block_err, n_inputs=sets, data_mb=data / 1e6,
+               l2_resident_sets=data < 2 * L2_BYTES)
+    wide = ""
+    if route == "warp":
+        wide_err = (k3_direct(torch, x, "wide") - want).abs().max().item()
+        check(wide_err <= K3_TOL, f"cross_entropy_lse ({n}, {v}) {dt} wide "
+              f"route: max err {wide_err}")
+        row["wide_ms"] = [time_ms(lambda i: k3_direct(torch, xs[i], "wide"),
+                                  sets, iters)[0] for _ in range(2)]
+        wide = (f"; wide route ms {row['wide_ms'][0]:.5f}, "
+                f"{row['wide_ms'][1]:.5f} (max_abs_err {wide_err:.3e})")
+    print(f"cross_entropy_lse {case}: route {route} ms {row['ms']:.5f}, "
+          f"{again:.5f}; block route ms {block_ms[0]:.5f}, {block_ms[1]:.5f} "
+          f"(max_abs_err {block_err:.3e}){wide}; torch.logsumexp "
+          f"{row['library_ms']:.5f}; bound {row['bound_ms']:.6f}, roofline "
+          f"share {row['bound_ms'] / min(row['ms'], again):.3f}; {sets} input "
+          f"set(s), {data / 1e6:.1f} MB cycled{k3_residence(data)}",
+          flush=True)
+    if resident:
+        res = {"ms": time_ms(lambda i: kce.fused_lse(x))[0],
+               "block_ms": time_ms(lambda i: k3_direct(torch, x, "block"))[0],
+               "library_ms": time_ms(lambda i: torch.logsumexp(x, -1))[0]}
+        row["l2_resident"] = res
+        print(f"cross_entropy_lse {case}, L2-resident (set 0 alone, "
+              f"{n * v * size / 1e6:.1f} MB, called again and again): route "
+              f"{route} ms {res['ms']:.5f}, block route ms "
+              f"{res['block_ms']:.5f}, torch.logsumexp "
+              f"{res['library_ms']:.5f}", flush=True)
+    return row
+
+
+def k3_beats_library(row):
+    """A narrow-row K3 row must beat torch.logsumexp on the same inputs."""
+    check(row["ms"] < row["library_ms"],
+          f"cross_entropy_lse {row['case']}: {row['ms']} ms not under "
+          f"torch.logsumexp's {row['library_ms']}")
+
+
+def k3_keeps_pace(row):
+    """A long-row K3 row must be no slower than the first design in the
+    same call: its faster timing against the block route's faster one,
+    with 1% for the spread between two loops of one kernel (up to 0.1%
+    on the H100)."""
+    ms, block = min(row["route_ms"]), min(row["block_ms"])
+    check(ms <= 1.01 * block, f"cross_entropy_lse {row['case']}: route "
+          f"{row['k3_route']} {ms} ms slower than the block route's {block}")
+
+
+def k3_offset(torch, x, case):
+    """The same logits at x's 16-byte-aligned address and 4 bytes past
+    one: fused_lse must agree with itself and with lse_plain to K3_TOL.
+    Returns the case's record."""
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    check(x.data_ptr() % 16 == 0, f"{case}: x not 16-byte aligned")
+    skip = 4 // x.element_size()
+    buf = torch.empty(x.numel() + skip, dtype=x.dtype, device=x.device)
+    y = buf[skip:].view(x.shape)
+    y.copy_(x)
+    a, b = kce.fused_lse(x), kce.fused_lse(y)
+    off = (b - a).abs().max().item()
+    err = (b - kce.lse_plain(y)).abs().max().item()
+    route = kce.lse_route(y)
+    print(f"cross_entropy_lse {case}, route {route}, 4 bytes past a 16-byte "
+          f"boundary: against the aligned copy {off:.3e}, against lse_plain "
+          f"{err:.3e} (limit {K3_TOL:g})", flush=True)
+    check(off <= K3_TOL and err <= K3_TOL,
+          f"cross_entropy_lse {case} at a 4-byte offset: {off}, {err}")
+    return {"name": "cross_entropy_lse", "case": f"{case}, 4-byte offset",
+            "k3_route": route, "max_abs_err": max(off, err), "limit": K3_TOL}
+
+
+def k3_train_rows(torch, dev, g):
+    """Phase 2's K3 rows: the LM head's (8184, 32000) logits in f32 (the
+    kernels line's row; about 5% of labels -1) and bf16, ResNet-50's
+    (32, 1000) f32 and bf16 and SSD300's class loss's (279424, 21) f32
+    (cold and L2-resident) and bf16, random logits from ``g``; and the
+    4-byte offset on each route. The LM head's f32 row must keep pace
+    with the first design, SSD300's beat torch.logsumexp. Returns (rows,
+    cases)."""
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    rows, cases = [], []
+    n, vocab = 8 * 1023, 32000
+    xs = k3_sets(torch, randn, n, vocab, torch.float32)
+    labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
+    labels[torch.rand(n, generator=g, device=dev) < 0.05] = -1
+    nll = kce.cross_entropy_with_logits(xs[0], labels)
+    ignored = labels < 0
+    check(bool((nll[ignored] == 0).all().item()), "K3: ignored rows not 0")
+    print(f"cross_entropy_with_logits ({n}, {vocab}) f32: "
+          f"{int(ignored.sum().item())} labels -1, their nll 0", flush=True)
+    rows.append(k3_case(torch, xs, f"({n}, {vocab}) f32", "wide", labels))
+    k3_keeps_pace(rows[-1])
+    cases.append(k3_offset(torch, xs[0], f"({n}, {vocab}) f32"))
+    xs = xs.bfloat16()
+    rows.append(k3_case(torch, xs, f"({n}, {vocab}) bf16", "wide"))
+    del xs
+    # ResNet-50's train step (phase 9), and SSD300's class loss (phase 16)
+    for (n, vocab), route, resident in (
+            ((32, 1000), "wide", False),
+            ((DET_B * DET_ANCHORS, DET_CLASSES + 1), "rows", True)):
+        xs = k3_sets(torch, randn, n, vocab, torch.float32)
+        labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
+        rows.append(k3_case(torch, xs, f"({n}, {vocab}) f32", route, labels,
+                            resident))
+        if route == "rows":
+            k3_beats_library(rows[-1])
+        cases.append(k3_offset(torch, xs[0], f"({n}, {vocab}) f32"))
+        xb = k3_sets(torch, randn, n, vocab, torch.bfloat16, xs[0])
+        rows.append(k3_case(torch, xb, f"({n}, {vocab}) bf16", route))
+        cases.append(k3_offset(torch, xb[0], f"({n}, {vocab}) bf16"))
+        del xs, xb
+    return rows, cases
+
+
 def train_kernel_checks(torch, dev):
     """Phase 2, the training slice's kernels. K1 forward, K1c and K1d at
     the train step's (8, 12, 1024, 64) causal f32 and K3 at its
@@ -1343,12 +1554,11 @@ def train_kernel_checks(torch, dev):
     bitwise-equal results, and K1 forward under SDPA's forward; then the
     other K1 cases (non-causal, ragged L 1000, Lq 256 < Lk 1024, bf16
     (all three timed there too, beside SDPA in bf16), D 128 and D 36 in
-    f32 and bf16) and K3 in bf16 once each. Returns (timed rows, other
-    cases, extra timings)."""
+    f32 and bf16) once each; then K3 at every shape of the training paths
+    but BERT's (:func:`k3_train_rows`). Returns (timed rows, other cases,
+    extra timings)."""
     import torch.nn.functional as F
 
-    from mxnet_tpu_torch.ops import nn as tnn
-    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
     from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
 
     g = torch.Generator(device=dev)
@@ -1463,50 +1673,10 @@ def train_kernel_checks(torch, dev):
             extra["bf16"] = bf16_times(torch, kfa, q, k, v, go)
         del q, k, v, go
 
-    # K3: the loss's (8 * 1023, 32000) logits, about 5% of labels -1
-    n, vocab = 8 * 1023, 32000
-    x = randn(n, vocab) * 2.0
-    labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
-    labels[torch.rand(n, generator=g, device=dev) < 0.05] = -1
-    lse = kce.fused_lse(x)
-    err = (lse - kce.lse_plain(x)).abs().max().item()
-    nll = kce.cross_entropy_with_logits(x, labels)
-    with tnn.no_kernels():
-        pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
-    nll_err = (nll - pnll).abs().max().item()
-    ignored = labels < 0
-    check(bool((nll[ignored] == 0).all().item()), "K3: ignored rows not 0")
-    print(f"cross_entropy_with_logits ({n}, {vocab}) f32, "
-          f"{int(ignored.sum().item())} labels -1: nll max_abs_err "
-          f"{nll_err:.3e} against the no_kernels path", flush=True)
-    # lse of 32000 exponentials summed in another order: a few f32 ulps
-    # of values near 12
-    rows.append(measure(
-        "cross_entropy_lse", f"({n}, {vocab}) f32", max(err, nll_err), 1e-5,
-        lambda i: kce.fused_lse(x), lambda i: kce.lse_plain(x),
-        lambda i: torch.logsumexp(x, -1), 4 * n * vocab + 4 * n,
-        4 * n * vocab))
-    xb = x.bfloat16()
-    err = (kce.fused_lse(xb) - kce.lse_plain(xb)).abs().max().item()
-    print(f"cross_entropy_lse ({n}, {vocab}) bf16: max_abs_err {err:.3e} "
-          f"(limit 1e-5)", flush=True)
-    check(err <= 1e-5, f"cross_entropy_lse bf16: {err}")
-    cases.append({"name": "cross_entropy_lse", "case": "bf16",
-                  "max_abs_err": err, "limit": 1e-5})
-    # K3 at the ResNet-50 train step's (32, 1000) f32 logits (phase 9)
-    n, vocab = 32, 1000
-    x = randn(n, vocab) * 2.0
-    labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
-    err = (kce.fused_lse(x) - kce.lse_plain(x)).abs().max().item()
-    with tnn.no_kernels():
-        pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
-    err = max(err, (kce.cross_entropy_with_logits(x, labels) - pnll
-                    ).abs().max().item())
-    print(f"cross_entropy_lse and cross_entropy_with_logits ({n}, {vocab}) "
-          f"f32: max_abs_err {err:.3e} (limit 1e-5)", flush=True)
-    check(err <= 1e-5, f"cross_entropy_lse ({n}, {vocab}): {err}")
-    cases.append({"name": "cross_entropy_lse", "case": f"({n}, {vocab}) f32",
-                  "max_abs_err": err, "limit": 1e-5})
+    # K3 at every shape of the training paths but BERT's
+    k3_rows, k3_cases = k3_train_rows(torch, dev, g)
+    rows += k3_rows
+    cases += k3_cases
     return rows, cases, extra
 
 
@@ -1625,16 +1795,12 @@ def bert_kernel_checks(torch, dev):
     ones),
     each run twice for the same bits and timed against its tensor-core
     bound and SDPA under the same policy; L 128 is two 64-row query tiles
-    a head, every key tile full. K3 on its unaligned route (rows not a
-    multiple of 16 bytes, so no 16-byte loads) at the MLM loss's
-    (4096, 30522) and the NSP loss's (32, 2) f32 logits, against lse_plain
-    and the no_kernels loss at 1e-5, timed against its byte bound and
-    torch.logsumexp. Returns the rows."""
+    a head, every key tile full. K3 (:func:`k3_bert_rows`) at the MLM
+    loss's (4096, 30522) and the NSP loss's (32, 2) f32 logits, rows of
+    no 16-byte multiple. Returns the rows."""
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.base import matmul_precision_scope
-    from mxnet_tpu_torch.ops import nn as tnn
-    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
     from mxnet_tpu_torch.ops.kernels import flash_attention as kfa
 
     g = torch.Generator(device=dev)
@@ -1716,23 +1882,119 @@ def bert_kernel_checks(torch, dev):
         rows += part_rows
         del runs, o, qs, ks, vs
     del q, k, v, go
-    for n, vocab in ((b * l, BERT_VOCAB), (b, 2)):
-        x = torch.randn(n, vocab, generator=g, device=dev) * 2.0
+    return rows + k3_bert_rows(torch, dev, g)
+
+
+def k3_bert_rows(torch, dev, g):
+    """K3 at BERT's heads, rows of no 16-byte multiple: the MLM head's
+    (4096, 30522) on the wide route's peeled head (every other row starts
+    8 bytes past a boundary), no slower than the first design, and the
+    NSP head's (32, 2) on the warp route (too few bytes for the rows
+    route's set-up), each also at a 4-byte offset. Returns the rows."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    rows = []
+    for n, vocab, route in ((BERT_B * BERT_L, BERT_VOCAB, "wide"),
+                            (BERT_B, 2, "warp")):
+        xs = k3_sets(torch, randn, n, vocab, torch.float32)
         labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
-        check(x.data_ptr() % 16 != 0 or (vocab * 4) % 16 != 0,
-              f"({n}, {vocab}): rows of 16-byte multiples take the vector "
-              "route")
-        err = (kce.fused_lse(x) - kce.lse_plain(x)).abs().max().item()
-        with tnn.no_kernels():
-            pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
-        err = max(err, (kce.cross_entropy_with_logits(x, labels) - pnll
-                        ).abs().max().item())
-        rows.append(measure(
-            "cross_entropy_lse", f"({n}, {vocab}) f32, unaligned rows", err,
-            1e-5, lambda i: kce.fused_lse(x), lambda i: kce.lse_plain(x),
-            lambda i: torch.logsumexp(x, -1), 4 * n * vocab + 4 * n,
-            4 * n * vocab))
+        case = f"({n}, {vocab}) f32, unaligned rows"
+        rows.append(k3_case(torch, xs, case, route, labels))
+        if route == "wide":
+            k3_keeps_pace(rows[-1])
+        rows[-1]["offset"] = k3_offset(torch, xs[0], case)
+        del xs
     return rows
+
+
+# --k3: the widths swept (k3_sweep), up to a little past the rows route's
+K3_SWEEP_V = (2, 8, 16, 21, 32, 48, 64, 100, 128, 256, 512)
+K3_SWEEP_BYTES = 128 << 20      # logits a width: read from device memory
+# few rows: the launch's fixed cost against its bytes, by route
+K3_SWEEP_FEW = ((2, "float32"), (21, "float32"), (21, "bfloat16"))
+K3_SWEEP_N = (32, 256, 1024, 4096, 16384, 65536)
+
+
+def k3_sweep(torch, dev):
+    """The measurements behind ``lse_route``'s cuts: every K3 route (the
+    rows route up to 256-byte rows) at each width of K3_SWEEP_V in f32
+    and bf16, about K3_SWEEP_BYTES of logits each, checked against
+    lse_plain and timed in one loop; then every route at K3_SWEEP_FEW's
+    widths over K3_SWEEP_N rows, input sets cycled past the L2. Prints a
+    table; returns the times."""
+    from mxnet_tpu_torch.ops.kernels import _build
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    lib = _build.load("cross_entropy")
+    stream = _build.stream_ptr(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 17)
+    out = {"widths": [], "few": []}
+
+    def launch(x, lse, route):
+        _build.check(kce.lse_launch(lib, route, x, lse, stream),
+                     f"cross_entropy_lse {route} route")
+
+    def sweep(xs, rec, iters):
+        """Each route on the sets xs into rec, checked on set 0."""
+        x = xs[0]
+        n, v = x.shape
+        size = x.element_size()
+        want = kce.lse_plain(x)
+        lse = torch.empty((n,), dtype=torch.float32, device=dev)
+        rec.update(chosen=kce.lse_route(x),
+                   bound_ms=bound_ms(n * v * size + 4 * n, 4 * n * v)[0])
+        for route in ("rows", "warp", "wide", "block"):
+            if route == "rows" and v * size > kce.LSE_ROWS_MAX_BYTES:
+                continue
+            launch(x, lse, route)
+            err = (lse - want).abs().max().item()
+            check(err <= K3_TOL, f"k3_sweep ({n}, {v}) {rec['dtype']} "
+                  f"{route}: max err {err}")
+            rec[route] = time_ms(lambda i: launch(xs[i], lse, route),
+                                 xs.shape[0], iters)[0]
+        return (f"bound {rec['bound_ms']:.6f} ms; " + ", ".join(
+            f"{r} {rec[r]:.5f}" for r in ("rows", "warp", "wide", "block")
+            if r in rec) + f"; lse_route {rec['chosen']}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.empty((), dtype=dtype).element_size()
+        for v in K3_SWEEP_V:
+            n = max(1, K3_SWEEP_BYTES // (v * size))
+            xs = (torch.randn(1, n, v, generator=g, device=dev) * 2.0
+                  ).to(dtype)
+            rec = {"v": v, "n": n, "dtype": str(dtype)[6:]}
+            line = sweep(xs, rec, 100)
+            out["widths"].append(rec)
+            print(f"k3_sweep ({n}, {v}) {rec['dtype']}: {line}", flush=True)
+            del xs
+    for v, dt in K3_SWEEP_FEW:
+        dtype = getattr(torch, dt)
+        for n in K3_SWEEP_N:
+            xs = k3_sets(torch, lambda *s_: torch.randn(*s_, generator=g,
+                                                        device=dev),
+                         n, v, dtype)
+            sets = xs.shape[0]
+            rec = {"v": v, "n": n, "dtype": dt, "sets": sets}
+            line = sweep(xs, rec, max(100, sets))
+            out["few"].append(rec)
+            print(f"k3_sweep ({n}, {v}) {dt}, {sets} input sets"
+                  f"{k3_residence(xs.numel() * xs.element_size())}: {line}",
+                  flush=True)
+            del xs
+    return out
+
+
+def k3_phase(torch, dev):
+    """--k3: phase 1, then the sweep and every K3 row of phase 2 (on
+    random logits, SSD300's shape included)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    res = {"sweep": k3_sweep(torch, dev)}
+    res["rows"], res["cases"] = k3_train_rows(torch, dev, g)
+    res["rows"] += k3_bert_rows(torch, dev, g)
+    return res
 
 
 def bf16_times(torch, kfa, q, k, v, go):
@@ -7574,7 +7836,7 @@ def det_train(torch, mx, card, wrappers, dev):
           f"max_memory_allocated {peak / 2**30:.3f} GiB; loss "
           f"{losses[0]:.4f} -> mean of the last 5 {tail:.4f}; K3 "
           f"{out['k3_launches_per_step']:.0f} launch a step (the 21-class "
-          f"rows, its unaligned route)", flush=True)
+          f"rows, its rows route)", flush=True)
     print(f"  multibox_target: {tmed:.3f} ms a step between CUDA events "
           f"(median; {100 * tmed / med:.1f}% of the step), {n_launch} "
           f"kernels and copies summing {kern_ms:.3f} device ms "
@@ -7584,32 +7846,26 @@ def det_train(torch, mx, card, wrappers, dev):
 
 def det_k3(torch, saved):
     """K3 at the SSD300 class loss's shape: step 0's (DET_B * DET_ANCHORS,
-    21) f32 logits (rows of 84 bytes, its unaligned route) and class
+    21) f32 logits (rows of 84 bytes, on the rows route) and class
     targets (-1 for ignored anchors), fused_lse against lse_plain and
-    cross_entropy_with_logits against the no_kernels loss at 1e-5,
-    timed against its byte bound and torch.logsumexp. The row is
+    cross_entropy_with_logits against the no_kernels loss at 1e-5
+    (:func:`k3_case`), timed with random input sets after the real one so
+    that the logits come from device memory, and with the real ones
+    alone, L2-resident as the step finds them; beside its byte bound,
+    the first design and torch.logsumexp, which it must beat. The row is
     phase 16's, not the kernels line's."""
-    from mxnet_tpu_torch.ops import nn as tnn
-    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
-
     c = DET_CLASSES + 1
     x = saved[2].transpose(1, 2).reshape(-1, c).contiguous()
     labels = saved[3][2].reshape(-1).long()
     n = x.shape[0]
-    check((c * 4) % 16 != 0, f"({n}, {c}): rows of 16-byte multiples take "
-          "the vector route")
-    err = (kce.fused_lse(x) - kce.lse_plain(x)).abs().max().item()
-    with tnn.no_kernels():
-        pnll = tnn.softmax_cross_entropy(x, labels, per_example=True)
-    err = max(err, (kce.cross_entropy_with_logits(x, labels) - pnll
-                    ).abs().max().item())
-    row = measure(
-        "cross_entropy_lse", f"({n}, {c}) f32, SSD300 class loss, unaligned "
-        "rows", err, 1e-5, lambda i: kce.fused_lse(x),
-        lambda i: kce.lse_plain(x), lambda i: torch.logsumexp(x, -1),
-        4 * n * c + 4 * n, 4 * n * c)
-    print(f"  K3 at the SSD300 class loss: roofline share "
-          f"{row['bound_ms'] / row['ms']:.3f} of its byte bound", flush=True)
+    g = torch.Generator(device=x.device)
+    g.manual_seed(SEED + 17)
+    xs = k3_sets(torch, lambda *shape: torch.randn(*shape, generator=g,
+                                                   device=x.device),
+                 n, c, torch.float32, x)
+    row = k3_case(torch, xs, f"({n}, {c}) f32, SSD300 class loss", "rows",
+                  labels, resident=True)
+    k3_beats_library(row)
     return row
 
 
@@ -8124,6 +8380,11 @@ def main(argv):
         write_results(results)
         print("chip_smoke --spec: phases 1, 2 at the spec shapes and 10 "
               "passed")
+        return 0
+    if "--k3" in argv:           # phase 1 and K3's rows only: no result
+        results["k3"] = k3_phase(torch, dev)
+        write_results(results)
+        print("chip_smoke --k3: phase 1, K3's sweep and rows passed")
         return 0
     if "--detect" in argv:       # phases 1 and 16 only: no result line
         results["detect"] = detect_phase(torch, card, kernel_wrappers())

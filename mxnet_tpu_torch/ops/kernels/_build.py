@@ -84,6 +84,9 @@ _SIGNATURES = {
     },
     "cross_entropy": {
         "mxt_row_lse": [_P, _P, _I64, _I64, _I, _I, _P],
+        "mxt_lse_wide": [_P, _P, _I64, _I64, _I, _P],
+        "mxt_lse_warp": [_P, _P, _I64, _I64, _I, _P],
+        "mxt_lse_rows": [_P, _P, _I64, _I64, _I, _P],
     },
 }
 

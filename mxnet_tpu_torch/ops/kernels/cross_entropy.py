@@ -2,11 +2,22 @@
 ``mxnet_tpu/ops/pallas/cross_entropy.py``).
 
 Replaces ``_lse_kernel`` (``ops/pallas/cross_entropy.py:34``, reached
-through ``fused_lse`` ``:64``) with the hand-written CUDA kernel in
-``csrc/cross_entropy.cu``: one block per row, one read of the row with
-an online max and sum. Bound on the H100: bytes; at the LM head's
-(8184, 32000) f32 logits that is 1.05 GB read, 0.31 ms at 3.35 TB/s.
-It runs once per train step.
+through ``fused_lse`` ``:64``) with the hand-written CUDA kernels in
+``csrc/cross_entropy.cu``: one read of each row, max and sum in f32.
+Bound on the H100: bytes; at the LM head's (8184, 32000) f32 logits that
+is 1.05 GB read, 0.31 ms at 3.35 TB/s. It runs once per train step.
+
+:func:`lse_route` picks one of three kernels from the row's width in
+bytes and the bytes of the whole input: ``"rows"`` for many narrow rows
+(SSD300's 21 classes: tiles of many rows through shared memory, one
+thread a row), ``"warp"`` for a few narrow rows (one warp a row; the NSP
+head's 2 classes) and ``"wide"`` for every wider row (one block a row;
+ResNet-50's 1000 classes, the LM and MLM heads).
+Every route takes rows at any address: the streaming ones peel a scalar
+head up to the row's first 16-byte boundary, the tiles copy their
+aligned body and load the ragged ends. ``"block"``, the first design
+(16-byte loads only where every row is aligned), stays reachable through
+:func:`lse_launch` for comparison. Each call is one launch.
 
 :func:`fused_lse` launches the kernel for CUDA tensors and takes
 :func:`lse_plain` for CPU tensors. :func:`cross_entropy_with_logits` is
@@ -21,8 +32,8 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_lse", "lse_plain", "cross_entropy_with_logits",
-           "cross_entropy_plain"]
+__all__ = ["fused_lse", "lse_plain", "lse_route", "lse_launch",
+           "cross_entropy_with_logits", "cross_entropy_plain"]
 
 
 def lse_plain(x):
@@ -34,9 +45,47 @@ def lse_plain(x):
     return (m + torch.log(torch.where(l == 0.0, torch.ones_like(l), l)))[:, 0]
 
 
+# lse_route's cuts, from chip_smoke.py --k3's sweep on the H100: the
+# widest row, in bytes, of the narrow routes; below LSE_ROWS_MIN_BYTES of
+# logits the rows route's set-up (barriers, the first bulk copy) costs
+# more than one warp a row
+LSE_ROWS_MAX_BYTES = 256
+LSE_ROWS_MIN_BYTES = 128 << 10
+
+
+def lse_route(x):
+    """The K3 kernel that takes the rows of ``x`` (N, V), by their width
+    in bytes: up to LSE_ROWS_MAX_BYTES ``"rows"``, or ``"warp"`` while
+    all of x is under LSE_ROWS_MIN_BYTES; ``"wide"`` otherwise. Every
+    route reads rows at any 16-byte alignment, so the address does not
+    change the choice."""
+    n, v = x.shape
+    row_bytes = v * x.element_size()
+    if row_bytes > LSE_ROWS_MAX_BYTES:
+        return "wide"
+    return "rows" if n * row_bytes >= LSE_ROWS_MIN_BYTES else "warp"
+
+
+def lse_launch(lib, route, x, lse, stream):
+    """Launch one K3 kernel of ``lib`` by its C entry (``route`` as
+    :func:`lse_route`, or ``"block"``) on (N, V) ``x``, writing (N,) f32
+    ``lse``; returns the entry's error code."""
+    n, v = x.shape
+    code = _build.dtype_code(x.dtype)
+    if route == "block":
+        # 16-byte loads when every row starts on a 16-byte boundary
+        vec = int(x.data_ptr() % 16 == 0 and (v * x.element_size()) % 16 == 0)
+        return lib.mxt_row_lse(x.data_ptr(), lse.data_ptr(), n, v, vec, code,
+                               stream)
+    entry = {"rows": lib.mxt_lse_rows, "warp": lib.mxt_lse_warp,
+             "wide": lib.mxt_lse_wide}[route]
+    return entry(x.data_ptr(), lse.data_ptr(), n, v, code, stream)
+
+
 def fused_lse(x):
     """Row-wise logsumexp of a 2-D array in one pass over it: (N,) f32.
-    CUDA tensors: the K3 kernel (float32 or bfloat16, contiguous)."""
+    CUDA tensors: one K3 kernel (float32 or bfloat16, contiguous), chosen
+    by :func:`lse_route`."""
     what = "fused_lse"
     _build.refuse_grad(what, x)
     if _build.on_cpu(what, x):
@@ -45,15 +94,11 @@ def fused_lse(x):
     _build.require(x.dtype in (torch.float32, torch.bfloat16), what,
                    f"dtype {x.dtype}: float32 or bfloat16")
     _build.require(x.is_contiguous(), what, "x must be contiguous")
-    n, v = x.shape
     lib = _build.load("cross_entropy")
-    lse = torch.empty((n,), dtype=torch.float32, device=x.device)
-    # 16-byte loads when every row starts on a 16-byte boundary
-    vec = int(x.data_ptr() % 16 == 0 and (v * x.element_size()) % 16 == 0)
+    lse = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.mxt_row_lse(x.data_ptr(), lse.data_ptr(), n, v, vec,
-                              _build.dtype_code(x.dtype),
-                              _build.stream_ptr(x.device))
+        err = lse_launch(lib, lse_route(x), x, lse,
+                         _build.stream_ptr(x.device))
     _build.check(err, what)
     fused_lse.launches += 1
     return lse

@@ -286,16 +286,86 @@ def test_attend_matches_jax_attend(mask_kind):
                                     rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("n,v", [(13, 300), (8, 2048)])
+@pytest.mark.parametrize("n,v", [(13, 300), (8, 2048), (5, 2), (64, 21),
+                                 (7, 10), (3, 30522)])
 def test_fused_lse_matches_pallas(n, v):
     """Port fused_lse (plain version) against the Pallas _lse_kernel in
-    interpret mode, ragged rows and a vocab that is no block multiple."""
+    interpret mode, ragged rows and a vocab that is no block multiple;
+    the narrow rows of the NSP head (2) and SSD300's class loss (21), an
+    even narrow width (10), and BERT's MLM vocab (30522, rows of no
+    16-byte multiple)."""
     x = (onp.random.RandomState(n).randn(n, v) * 4).astype(onp.float32)
     want = jce.fused_lse(jnp.asarray(x), interpret=True)
     got = tce.fused_lse(_t(x))
     assert got.dtype == torch.float32 and tuple(got.shape) == (n,)
     onp.testing.assert_allclose(got.numpy(), onp.asarray(want),
                                 rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_lse_route_by_width_and_launch_entries():
+    """K3's route at every shape the port's paths launch it (meta tensors:
+    no memory, no card) and at the cuts around them: many narrow rows on
+    "rows" (SSD300's class loss), a few narrow rows on "warp" (BERT's NSP
+    head), every wider row on "wide" (ResNet-50's 1000 classes, the LM
+    and MLM heads), however many; the address never changes the route.
+    lse_launch calls each route's C entry (a stand-in library here) with
+    the row count, width and dtype code, and "block" (the first design)
+    gets its 16-byte flag only for aligned rows of 16-byte multiples."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    table = {(8184, 32000, f32): "wide", (8184, 32000, bf16): "wide",
+             (4096, 30522, f32): "wide", (32, 2, f32): "warp",
+             (32, 1000, f32): "wide", (32, 1000, bf16): "wide",
+             (279424, 21, f32): "rows", (279424, 21, bf16): "rows",
+             (4096, 21, f32): "rows", (1024, 21, f32): "warp",
+             (16384, 2, f32): "rows", (16383, 2, f32): "warp",
+             (4096, 64, f32): "rows", (4096, 65, f32): "wide",
+             (2047, 65, f32): "wide", (4096, 2048, f32): "wide",
+             (65536, 1000, f32): "wide", (4096, 4096, bf16): "wide",
+             (4096, 128, bf16): "rows", (4096, 129, bf16): "wide",
+             (1, 64, f32): "warp"}
+    for (n, v, dtype), route in table.items():
+        x = torch.empty(n, v, dtype=dtype, device="meta")
+        assert tce.lse_route(x) == route, (n, v, dtype)
+
+    class Lib:
+        def __init__(self):
+            self.calls = []
+
+        def mxt_lse_rows(self, x, lse, n, v, code, s):
+            self.calls.append(("rows", n, v, code))
+            return 0
+
+        def mxt_lse_warp(self, x, lse, n, v, code, s):
+            self.calls.append(("warp", n, v, code))
+            return 0
+
+        def mxt_lse_wide(self, x, lse, n, v, code, s):
+            self.calls.append(("wide", n, v, code))
+            return 0
+
+        def mxt_row_lse(self, x, lse, n, v, vec, code, s):
+            self.calls.append(("block", n, v, code, vec))
+            return 0
+
+    lib = Lib()
+    routes, vecs = [], []
+    for n, v, dtype, offset in ((3, 21, f32, 0), (8192, 21, f32, 1),
+                                (2048, 100, f32, 0), (3, 1000, bf16, 3),
+                                (3, 30522, f32, 0), (3, 32000, f32, 1),
+                                (3, 32000, bf16, 0)):
+        x = torch.zeros(n * v + offset, dtype=dtype)[offset:].view(n, v)
+        lse = torch.empty(n)
+        route = tce.lse_route(x)
+        code = _build.dtype_code(dtype)
+        assert tce.lse_launch(lib, route, x, lse, 0) == 0
+        assert lib.calls[-1] == (route, n, v, code)
+        assert tce.lse_launch(lib, "block", x, lse, 0) == 0
+        vec = int(x.data_ptr() % 16 == 0 and (v * x.element_size()) % 16 == 0)
+        assert lib.calls[-1] == ("block", n, v, code, vec)
+        routes.append(route)
+        vecs.append(vec)
+    assert routes == ["warp", "rows", "wide", "wide", "wide", "wide", "wide"]
+    assert vecs == [0, 0, 1, 0, 0, 0, 1]
 
 
 def test_cross_entropy_with_logits_value_and_grad_match_jax():
