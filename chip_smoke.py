@@ -17,6 +17,7 @@ NVIDIA H100.
     python3 chip_smoke.py --graphtrain # phases 1 and 14 only (no result)
     python3 chip_smoke.py --array      # phases 1 and 15 only (no result)
     python3 chip_smoke.py --detect     # phases 1 and 16 only (no result)
+    python3 chip_smoke.py --data       # phases 1 and 17 only (no result)
     python3 chip_smoke.py --serve-ab=A,B,B,A [--rounds=20]
                                        # phase 3's workload on the
                                        # engine of each tree listed
@@ -316,6 +317,33 @@ Phases (each asserts; any failure exits non-zero before the result line):
    38), ``foreach`` over an LSTM-style cell of 768 units (B 32, 128
    steps) with its gradients, and ``while_loop`` and ``cond`` eagerly,
    captured and replayed in a hybridized block (:func:`det_ops`).
+17. The flagship example's data loop (:func:`data_phase`).
+   ``example/gluon/image_classification_torch.py`` at its defaults
+   (resnet18_v1 at 32x32, 10 classes, B 64, hybridized, SGD) through its
+   own ``build``, ``get_data``, ``train_epoch`` and ``evaluate``: one
+   epoch of the synthetic ``ArrayDataset`` and of the synthetic
+   ``CIFAR10`` under ``transform_first(ToTensor())``, without and with
+   ``amp.init()`` (:func:`data_example`). ResNet-50 v1 hybridized at B
+   32, 224x224, ``default``, fed by ``gluon.data.DataLoader`` over 256
+   seeded uint8 images under ``Compose([ToTensor(), Normalize])`` with 0
+   workers, 4 fork workers and 4 threads, ``pin_memory`` off and on,
+   without and with AMP: the loader's host ms a batch, step ms, img/s
+   against the same steps fed from the card (the loader's share of the
+   epoch and of the median step), upload MB/s, peak memory; each loader
+   over a 32-batch epoch, and the forked pool's timeline batch by batch
+   (:func:`data_resnet`, :func:`data_long_epochs`,
+   :func:`data_pool_timeline`). In both, K3 exactly once a step and no
+   other kernel, every convolution and dense layer in bfloat16 under AMP
+   and K3's input in float32, a finite loss. The card's AMP step against
+   the port's CPU copy (loss within 1e-2 beside the control, the card
+   without AMP; the cast decisions and the dtypes each op is handed
+   identical),
+   a new graph pair after ``amp.init()``, and a float16
+   ``init_trainer`` overflow that skips the update bitwise and halves
+   the scale (:func:`data_amp_cpu`). ``ImageRecordIter`` over 64 .npy
+   records at 224 that the phase writes, ``NDArrayIter`` and
+   ``PrefetchingIter``: batches bitwise the CPU's, MB/s
+   (:func:`data_io`).
 
 The last lines are the card line, one ``{"kernels": [...]}`` line and
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -1501,7 +1529,8 @@ def k3_offset(torch, x, case):
 def k3_train_rows(torch, dev, g):
     """Phase 2's K3 rows: the LM head's (8184, 32000) logits in f32 (the
     kernels line's row; about 5% of labels -1) and bf16, ResNet-50's
-    (32, 1000) f32 and bf16 and SSD300's class loss's (279424, 21) f32
+    (32, 1000) f32 and bf16, the example's resnet18_v1 head's (64, 10)
+    f32 and bf16 (phase 17) and SSD300's class loss's (279424, 21) f32
     (cold and L2-resident) and bf16, random logits from ``g``; and the
     4-byte offset on each route. The LM head's f32 row must keep pace
     with the first design, SSD300's beat torch.logsumexp. Returns (rows,
@@ -1527,9 +1556,10 @@ def k3_train_rows(torch, dev, g):
     xs = xs.bfloat16()
     rows.append(k3_case(torch, xs, f"({n}, {vocab}) bf16", "wide"))
     del xs
-    # ResNet-50's train step (phase 9), and SSD300's class loss (phase 16)
+    # ResNet-50's train step (phase 9), the example's resnet18_v1 head
+    # (phase 17), and SSD300's class loss (phase 16)
     for (n, vocab), route, resident in (
-            ((32, 1000), "wide", False),
+            ((32, 1000), "wide", False), ((64, 10), "warp", False),
             ((DET_B * DET_ANCHORS, DET_CLASSES + 1), "rows", True)):
         xs = k3_sets(torch, randn, n, vocab, torch.float32)
         labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
@@ -8295,6 +8325,820 @@ def detect_phase(torch, card, wrappers):
     return out
 
 
+# -- phase 17: the flagship example's data loop ------------------------------
+# example/gluon/image_classification_torch.py (the port's copy of
+# example/gluon/image_classification.py) at its defaults: resnet18_v1 at
+# 32x32, 10 classes, B 64, hybridized, SGD lr 0.05 momentum 0.9 wd 1e-4,
+# one epoch of get_data's synthetic ArrayDataset (20 batches) and of the
+# synthetic CIFAR10(train=True) through transform_first(ToTensor()), then
+# evaluate() with metric.Accuracy, without and with amp.init()
+DATA_EXAMPLE = ["--model", "resnet18_v1", "--batch-size", "64"]
+# ResNet-50 v1 at full width through gluon.data: a seeded uint8 HWC
+# dataset of 8 batches (256 images, 38.5 MB) under Compose([ToTensor(),
+# Normalize(ImageNet mean, std)]), phase 9's B 32 at 224x224, SGD lr 0.05
+# momentum 0.9 wd 1e-4, under default; each loader configuration trains
+# one epoch from the same weights and zeroed momentum
+DATA_BATCHES = 8
+DATA_MEAN, DATA_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+DATA_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+DATA_LOADERS = [("0 workers", {}), ("4 fork workers", {"num_workers": 4}),
+                ("4 threads", {"num_workers": 4, "thread_pool": True})]
+# the card's bf16 AMP step against the port's CPU copy of it: the mean
+# loss, relative. bf16 keeps 8 bits, and the card's cuDNN and the CPU's
+# oneDNN round each of resnet18_v1's 21 products in another order:
+# sound runs read 2.1e-3 to 2.3e-3. A step run in another precision
+# reads about as close (the printed control: the card without AMP), so
+# this limit catches gross faults; the dtypes each op is handed, logged
+# on both sides, catch a precision fault
+DATA_AMP_TOL = 1e-2
+# ImageRecordIter's records: 64 .npy payloads at 224x224x3, B 32
+DATA_REC_N = 64
+# a longer epoch (the 256 images four times, 32 batches) for each
+# loader's steady state, where 8 batches in flight are no longer the
+# whole epoch
+DATA_LONG_REPEAT = 4
+
+
+def data_example_module():
+    """example/gluon/image_classification_torch.py as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "example", "gluon", "image_classification_torch.py")
+    spec = importlib.util.spec_from_file_location("ic_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def data_example(torch, card, wrappers):
+    """Phase 17(a): the example's own loop at its defaults, through its
+    build, get_data, train_epoch and evaluate, on the synthetic
+    ArrayDataset and the synthetic CIFAR-10, without and with AMP: K3
+    once a step and nothing else of the port, a finite loss, and under
+    AMP every convolution and the classifier in bfloat16 and K3's input
+    in float32."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    ex = data_example_module()
+    out = {}
+    for use_amp in (False, True):
+        for dataset in ("synthetic", "cifar10"):
+            args = ex.parse_args(DATA_EXAMPLE + ["--dataset", dataset]
+                                 + (["--amp"] if use_amp else []))
+            np.random.seed(SEED)
+            net, trainer, loss_fn = ex.build(args)
+            loader, val_loader = ex.get_data(args)
+            seen = data_dtype_spy(torch, net, nn, kce)
+            try:
+                for w in wrappers.values():
+                    w.launches = 0
+                loss, n, secs = ex.train_epoch(net, trainer, loss_fn, loader)
+                counts = {k: w.launches for k, w in wrappers.items()}
+                acc = ex.evaluate(net, val_loader)
+            finally:
+                loader.close()
+                val_loader.close()
+                data_spy_off(seen, kce)
+                amp.disable()
+            steps = n // args.batch_size
+            want = dict({k: 0 for k in wrappers}, cross_entropy_lse=steps)
+            label = f"{dataset}{' amp' if use_amp else ''}"
+            check(counts == want, f"17(a) {label}: launches {counts}")
+            check(math.isfinite(loss), f"17(a) {label}: loss {loss}")
+            data_check_dtypes(torch, seen, use_amp, f"17(a) {label}")
+            out[label] = {"loss": loss, "val_acc": acc, "images": n,
+                          "img_s": n / secs, "k3": counts["cross_entropy_lse"],
+                          "dtypes": seen["dtypes"]}
+            print(f"phase 17(a) example defaults (resnet18_v1 32x32, B 64, "
+                  f"hybridized, SGD) on {card}, {label}: one epoch of "
+                  f"{steps} steps, loss {loss:.4f}, val_acc {acc:.4f}, "
+                  f"{n / secs:.1f} img/s (a loss read each step), K3 "
+                  f"launches {counts['cross_entropy_lse']} (= steps), "
+                  f"dtypes {seen['dtypes']}", flush=True)
+            del net, trainer
+    return out
+
+
+def data_dtype_spy(torch, net, nn, kce):
+    """Record the output dtype of every Conv2D and Dense of ``net`` (their
+    forward hooks, which run in a capture's warm-up) and K3's input
+    dtype (a stand-in for ``kce._nll``, which takes the logits K3 took
+    and calls the original); :func:`data_spy_off` undoes both."""
+    seen = {"dtypes": {}, "orig": kce._nll}
+
+    def hook(block, args, out):
+        kind = "conv" if isinstance(block, nn.Conv2D) else "dense"
+        seen["dtypes"].setdefault(kind, set()).add(str(out.dtype)[6:])
+
+    seen["hooks"] = [m.register_forward_hook(hook) for m in net.modules()
+                     if isinstance(m, (nn.Conv2D, nn.Dense))]
+    orig = kce._nll
+
+    def spy(logits, lab, lse):
+        seen["dtypes"].setdefault("k3", set()).add(str(logits.dtype)[6:])
+        return orig(logits, lab, lse)
+
+    kce._nll = spy
+    return seen
+
+
+def data_spy_off(seen, kce):
+    kce._nll = seen["orig"]
+    for h in seen["hooks"]:
+        h.detach()
+
+
+def data_check_dtypes(torch, seen, use_amp, label):
+    d = seen["dtypes"]
+    act = {"bfloat16"} if use_amp else {"float32"}
+    check(d.get("conv") == act and d.get("dense") == act
+          and d.get("k3") == {"float32"},
+          f"{label}: dtypes {d}, expected convolutions and dense {act}, "
+          f"K3 float32")
+    seen["dtypes"] = {k: sorted(v) for k, v in d.items()}
+
+
+def data_zero_states(torch, state):
+    if isinstance(state, torch.Tensor):
+        state.zero_()
+    elif isinstance(state, (tuple, list)):
+        for s in state:
+            data_zero_states(torch, s)
+
+
+# the forked pool's timeline: per job (slot job % 64), the times
+# (perf_counter, CLOCK_MONOTONIC, one clock for every process) at which a
+# worker took the task, finished it, had pickled the result, held the
+# result pipe's write lock, and had written it; then the parent's result
+# thread had read its bytes and unpickled it. A shared anonymous mapping
+# made before the fork carries the workers' times to the parent.
+_TL = {}
+_TL_COLS = ("taken", "computed", "pickled", "locked", "sent", "read",
+            "unpickled", "pid")
+
+
+def _tl_get(self):
+    task = _TL["get"](self)
+    if os.getpid() != _TL["parent"] and isinstance(task, tuple) \
+            and len(task) == 5:
+        _TL["rows"][task[0] % 64, 0] = time.perf_counter()
+    return task
+
+
+def _tl_put(self, obj):
+    if os.getpid() == _TL["parent"] or not (isinstance(obj, tuple)
+                                            and len(obj) == 3):
+        return _TL["put"](self, obj)
+    from multiprocessing.reduction import ForkingPickler
+
+    row = _TL["rows"][obj[0] % 64]
+    row[1] = time.perf_counter()
+    buf = ForkingPickler.dumps(obj)
+    row[2] = time.perf_counter()
+    with self._wlock:
+        row[3] = time.perf_counter()
+        self._writer.send_bytes(buf)
+        row[4] = time.perf_counter()
+    row[7] = os.getpid()
+
+
+def _tl_recv(self):
+    from multiprocessing.reduction import ForkingPickler
+
+    self._check_closed()
+    self._check_readable()
+    buf = self._recv_bytes()
+    t_read = time.perf_counter()
+    obj = ForkingPickler.loads(buf.getbuffer())
+    if os.getpid() == _TL["parent"] and isinstance(obj, tuple) \
+            and len(obj) == 3 and isinstance(obj[0], int):
+        row = _TL["rows"][obj[0] % 64]
+        row[5], row[6] = t_read, time.perf_counter()
+    return obj
+
+
+def data_long_epochs(torch, card, trainer, restore, run, base_ms,
+                     base_img_s, make_loader):
+    """Phase 17(b), the loaders' steady state: each of DATA_LOADERS
+    (pin_memory off, AMP off) reads the long epoch (DATA_LONG_REPEAT
+    times the dataset) alone and then trains it; the loader's share of
+    the epoch against the resident epoch's img/s, and of the median
+    step against the resident median step."""
+    out = []
+    base_med = float(np.median(base_ms))
+    for label, kw in DATA_LOADERS:
+        restore(trainer)
+        np.random.seed(SEED)
+        loader = make_loader(**kw)
+        try:
+            got = [b for b in loader]
+            n = len(got)
+            del got
+            np.random.seed(SEED)
+            steps, losses, wall = run(trainer, loader)
+        finally:
+            loader.close()
+        lv = torch.stack(losses).float()
+        check(len(steps) == n == DATA_BATCHES * DATA_LONG_REPEAT
+              and bool(torch.isfinite(lv).all()),
+              f"17(b) long epoch, {label}: {len(steps)} steps of {n}, "
+              f"loss {lv.tolist()}")
+        img_s = RN_B * len(steps) / wall
+        med = float(np.median(steps))
+        row = {"loader": label, "steps": len(steps), "img_s": img_s,
+               "step_ms_median": med, "step_ms_first": steps[0],
+               "step_ms_max_after_first": max(steps[1:]),
+               "loader_share": 1 - img_s / base_img_s,
+               "loader_share_median": 1 - base_med / med}
+        out.append(row)
+        print(f"phase 17(b) long epoch ({len(steps)} steps, AMP off, "
+              f"pin_memory False) on {card}, {label}: {img_s:.1f} img/s "
+              f"against {base_img_s:.1f} fed from the card (the loader's "
+              f"share {row['loader_share']:.3f} of the epoch); step ms "
+              f"median {med:.2f} against {base_med:.2f} fed from the card "
+              f"(share {row['loader_share_median']:.3f}); first step "
+              f"{steps[0]:.2f}, the slowest after it "
+              f"{row['step_ms_max_after_first']:.2f}", flush=True)
+    return out
+
+
+def data_pool_timeline(torch, card, make_loader, run, resident):
+    """Phase 17(b), the forked pool's first-step wait: one loader of 4
+    fork workers (pin_memory off) reads its epoch alone and then trains
+    one, as the configurations do, with SimpleQueue's get and put and
+    the result pipe's recv timed (:data:`_TL`) and the loader's upload
+    too; returns the trained epoch's timeline, batch by batch, in ms
+    from the start of its ``iter()``. Then the steps over the batches
+    already on the card, without a fork and right after a loader forks
+    4 idle workers: what a fork alone costs the steps after it."""
+    import mmap
+    import multiprocessing.connection as mpc
+    import multiprocessing.queues as mpq
+
+    from mxnet_tpu_torch.gluon.data import dataloader as dlm
+
+    mm = mmap.mmap(-1, 64 * len(_TL_COLS) * 8)     # MAP_SHARED
+    _TL.update(parent=os.getpid(), get=mpq.SimpleQueue.get,
+               put=mpq.SimpleQueue.put, recv=mpc.Connection.recv,
+               upload=dlm._upload,
+               rows=np.frombuffer(mm, np.float64).reshape(64, -1))
+    uploads = []
+
+    def upload(*a):
+        t0 = time.perf_counter()
+        out = _TL["upload"](*a)
+        uploads.append((t0, time.perf_counter()))
+        return out
+
+    mpq.SimpleQueue.get, mpq.SimpleQueue.put = _tl_get, _tl_put
+    mpc.Connection.recv = _tl_recv
+    dlm._upload = upload
+    try:
+        loader = make_loader()          # forks the pool: after the patches
+        try:
+            got = [b for b in loader]
+            del got
+            _TL["rows"][:] = 0
+            uploads.clear()
+            np.random.seed(SEED)
+            t_iter = time.perf_counter()
+            it = iter(loader)
+            t_disp = time.perf_counter()
+            jobs = [it._pending[k]._job for k in sorted(it._pending)]
+            steps, _, wall = run(it)
+        finally:
+            loader.close()
+        rows = _TL["rows"][[j % 64 for j in jobs]].copy()
+    finally:
+        mpq.SimpleQueue.get, mpq.SimpleQueue.put = _TL["get"], _TL["put"]
+        mpc.Connection.recv = _TL["recv"]
+        dlm._upload = _TL["upload"]
+        del _TL["rows"]
+        mm.close()
+    check(len(uploads) == len(jobs) == len(steps) and bool((rows[:, :7]
+                                                            > 0).all()),
+          f"17(b) pool timeline: {len(jobs)} jobs, {len(uploads)} uploads, "
+          f"{len(steps)} steps, rows {rows.tolist()}")
+    ms = lambda t: 1e3 * (t - t_iter)           # noqa: E731
+    out = {"dispatch_ms": ms(t_disp), "wall_ms": 1e3 * wall, "batches": []}
+    step_end = np.cumsum(steps)
+    for k, (row, (u0, u1)) in enumerate(zip(rows, uploads)):
+        b = {c: float(ms(row[i])) for i, c in enumerate(_TL_COLS[:7])}
+        b.update(pid=int(row[7]), got=ms(u0), uploaded=ms(u1),
+                 step_end=float(step_end[k]))
+        out["batches"].append(b)
+    order = sorted(range(len(rows)), key=lambda k: rows[k, 5])
+    out["arrival_order"] = order
+    d = out["batches"]
+    for key, end, start in (("compute_ms", "computed", "taken"),
+                            ("pickle_ms", "pickled", "computed"),
+                            ("lock_wait_ms", "locked", "pickled"),
+                            ("send_ms", "sent", "locked"),
+                            ("unpickle_ms", "unpickled", "read"),
+                            ("upload_ms", "uploaded", "got")):
+        out[key] = [float(b[end] - b[start]) for b in d]
+    print(f"phase 17(b) 4 fork workers' timeline on {card} (ms from "
+          f"iter(); the 8 tasks dispatched in {out['dispatch_ms']:.2f}):",
+          flush=True)
+    for k, b in enumerate(d):
+        print(f"  batch {k} (pid {b['pid']}): taken {b['taken']:.1f}, "
+              f"computed {b['computed']:.1f}, pickled {b['pickled']:.1f}, "
+              f"pipe lock held {b['locked']:.1f}, sent {b['sent']:.1f}; "
+              f"parent read {b['read']:.1f}, unpickled "
+              f"{b['unpickled']:.1f}, handed out {b['got']:.1f}, uploaded "
+              f"{b['uploaded']:.1f}; its step ended {b['step_end']:.1f}",
+              flush=True)
+    print(f"  per batch: compute ms {[round(v, 1) for v in out['compute_ms']]}"
+          f"; pickle {[round(v, 1) for v in out['pickle_ms']]}; wait for "
+          f"the pipe's lock {[round(v, 1) for v in out['lock_wait_ms']]}; "
+          f"write to the pipe {[round(v, 1) for v in out['send_ms']]}; "
+          f"unpickle {[round(v, 1) for v in out['unpickle_ms']]}; upload "
+          f"{[round(v, 1) for v in out['upload_ms']]}; results arrived in "
+          f"the order {order}", flush=True)
+    out["resident_no_fork_ms"] = run(resident)[0]
+    loader = make_loader()
+    try:
+        out["resident_after_fork_ms"] = run(resident)[0]
+    finally:
+        loader.close()
+    for label, key in (("without a fork", "resident_no_fork_ms"),
+                       ("right after a loader forked 4 idle workers",
+                        "resident_after_fork_ms")):
+        print(f"  fed from the card, {label}: step ms "
+              f"{[round(v, 2) for v in out[key]]}", flush=True)
+    return out
+
+
+def data_resnet(torch, card, wrappers):
+    """Phase 17(b): ResNet-50 v1 hybridized at B 32, 224x224, under
+    ``default``, fed by ``gluon.data.DataLoader(shuffle=True,
+    last_batch="discard")`` over the seeded uint8 dataset (DATA_*), with
+    0 workers, 4 fork workers and 4 threads, each with ``pin_memory``
+    off and on, without and with AMP; each configuration one epoch from
+    the same weights and zeroed momentum. Per configuration: the
+    loader's host ms a batch alone, step ms (host wall to a synchronise;
+    median and range), img/s through the loader against the same steps
+    fed from batches already on the card, peak allocated memory (the
+    graph pools are not allocations of the step) and the memory
+    reserved, pools included, K3 launches equal
+    to the steps, the first convolution's and K3's input dtypes, and a
+    finite loss; per pinning, the upload's MB/s."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch.base import matmul_precision_scope
+    from mxnet_tpu_torch.convert import from_jax_params
+    from mxnet_tpu_torch.gluon import Trainer, nn
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.data.dataloader import _upload
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops.kernels import cross_entropy as kce
+
+    dev = mx.context.resolve_device(None)
+    rng = np.random.default_rng(SEED + 17)
+    n_img = DATA_BATCHES * RN_B
+    imgs = rng.integers(0, 256, (n_img, RN_HW, RN_HW, 3), dtype=np.uint8)
+    labels = rng.integers(0, RN_CLASSES, n_img).astype(np.int32)
+    tf = transforms.Compose(
+        [transforms.ToTensor(), transforms.Normalize(DATA_MEAN, DATA_STD)])
+    ds = ArrayDataset(imgs, labels).transform_first(tf)
+    ds_long = ArrayDataset(
+        np.concatenate([imgs] * DATA_LONG_REPEAT),
+        np.concatenate([labels] * DATA_LONG_REPEAT)).transform_first(tf)
+    net = vision.get_model("resnet50_v1", classes=RN_CLASSES)
+    net.initialize()
+    with autograd.pause():
+        net(torch.zeros(1, 3, RN_HW, RN_HW, device=dev))
+    from_jax_params(resnet_weights(net, SEED), net)
+    init = gt_snapshot(net)
+    params = net.collect_params()
+    net.hybridize()
+    loss_fn = SoftmaxCrossEntropyLoss()
+    # the batches of one epoch, already on the card: the loader's
+    # yardstick; and one host batch for the upload's rate
+    np.random.seed(SEED)
+    resident = [(x.clone(), y.clone()) for x, y in DataLoader(
+        ds, batch_size=RN_B, shuffle=True, last_batch="discard")]
+    host = np.stack([ds[i][0] for i in range(RN_B)])
+    out = {"card": card, "batch": RN_B, "policy": "default",
+           "dataset_mb": imgs.nbytes / 1e6, "upload": {}, "configs": []}
+    batch_mb = host.nbytes / 1e6
+    for pin in (False, True):
+        _upload(host, dev, pin)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            _upload(host, dev, pin)
+        torch.cuda.synchronize()
+        rate = 8 * batch_mb / (time.perf_counter() - t0)
+        out["upload"]["pinned" if pin else "pageable"] = rate
+    print(f"phase 17(b) upload of one {host.shape} float32 batch "
+          f"({batch_mb:.1f} MB) on {card}: pageable "
+          f"{out['upload']['pageable']:.1f} MB/s, pinned (a copy into "
+          f"pinned memory and a non_blocking copy) "
+          f"{out['upload']['pinned']:.1f} MB/s", flush=True)
+
+    def restore(trainer):
+        with torch.no_grad():
+            for n, p in params.items():
+                p.data().copy_(init[n])
+        data_zero_states(torch, list(trainer._states.values()))
+
+    def run(trainer, batches):
+        """One epoch: (step ms list, losses, wall s)."""
+        steps, losses = [], []
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        t0 = t_start
+        for x, y in batches:
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            autograd.backward(loss)
+            trainer.step(RN_B)
+            losses.append(loss.detach())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps.append(1e3 * (t1 - t0))
+            t0 = t1
+        return steps, losses, time.perf_counter() - t_start
+
+    with matmul_precision_scope("default"):
+        for use_amp in (False, True):
+            if use_amp:
+                amp.init()
+            seen = data_dtype_spy(torch, net, nn, kce)
+            try:
+                trainer = Trainer(params, "sgd", DATA_SGD)
+                # capture the pair and the update, cuDNN's set-up
+                run(trainer, resident[:2])
+                restore(trainer)
+                base_ms, _, base_s = run(trainer, resident)
+                base_img_s = RN_B * len(resident) / base_s
+                for label, kw in DATA_LOADERS:
+                    for pin in (False, True):
+                        restore(trainer)
+                        np.random.seed(SEED)
+                        loader = DataLoader(ds, batch_size=RN_B, shuffle=True,
+                                            last_batch="discard",
+                                            pin_memory=pin, **kw)
+                        try:
+                            t0 = time.perf_counter()
+                            got = [b for b in loader]
+                            torch.cuda.synchronize()
+                            loader_ms = 1e3 * (time.perf_counter() - t0) \
+                                / len(got)
+                            del got
+                            torch.cuda.reset_peak_memory_stats()
+                            for w in wrappers.values():
+                                w.launches = 0
+                            np.random.seed(SEED)      # the resident order
+                            steps, losses, wall = run(trainer, loader)
+                            counts = {k: w.launches
+                                      for k, w in wrappers.items()}
+                        finally:
+                            loader.close()
+                        # allocated memory counts the tensors the step
+                        # makes outside its graphs' pools; reserved, the
+                        # pools of the captured pairs too
+                        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                        reserved = torch.cuda.memory_reserved() / 2 ** 30
+                        name = (f"{label}, pin_memory {pin}, AMP "
+                                f"{'on' if use_amp else 'off'}")
+                        want = dict({k: 0 for k in wrappers},
+                                    cross_entropy_lse=DATA_BATCHES)
+                        check(len(steps) == DATA_BATCHES and counts == want,
+                              f"17(b) {name}: {len(steps)} steps, launches "
+                              f"{counts}")
+                        lv = torch.stack(losses).float()
+                        check(bool(torch.isfinite(lv).all()),
+                              f"17(b) {name}: loss {lv.tolist()}")
+                        img_s = RN_B * len(steps) / wall
+                        med = float(np.median(steps))
+                        row = {"loader": label, "pin_memory": pin,
+                               "amp": use_amp, "loader_ms": loader_ms,
+                               "step_ms_median": med,
+                               "step_ms": steps, "img_s": img_s,
+                               "resident_img_s": base_img_s,
+                               "loader_share": 1 - img_s / base_img_s,
+                               "loader_share_median":
+                                   1 - float(np.median(base_ms)) / med,
+                               "peak_gib": peak, "reserved_gib": reserved,
+                               "k3": counts["cross_entropy_lse"],
+                               "loss": lv.mean().item()}
+                        out["configs"].append(row)
+                        print(f"phase 17(b) resnet50_v1 B 32 224x224 on "
+                              f"{card}, {name}: loader alone "
+                              f"{loader_ms:.2f} host ms a batch; step ms "
+                              f"median {row['step_ms_median']:.2f} (range "
+                              f"{min(steps):.2f}-{max(steps):.2f}); "
+                              f"{img_s:.1f} img/s through the loader against "
+                              f"{base_img_s:.1f} fed from the card (the "
+                              f"loader's share {row['loader_share']:.3f} of "
+                              f"the epoch, "
+                              f"{row['loader_share_median']:.3f} of the "
+                              f"median step); "
+                              f"peak allocated {peak:.3f} GiB, reserved "
+                              f"{reserved:.3f} GiB; K3 launches "
+                              f"{row['k3']} of {len(steps)} steps; mean loss "
+                              f"{row['loss']:.4f}", flush=True)
+                if not use_amp:
+                    out["long"] = data_long_epochs(
+                        torch, card, trainer, restore, run, base_ms,
+                        base_img_s, lambda **kw: DataLoader(
+                            ds_long, batch_size=RN_B, shuffle=True,
+                            last_batch="discard", **kw))
+                    restore(trainer)
+                    out["pool_timeline"] = data_pool_timeline(
+                        torch, card, lambda: DataLoader(
+                            ds, batch_size=RN_B, shuffle=True,
+                            last_batch="discard", num_workers=4),
+                        lambda batches: run(trainer, batches), resident)
+            finally:
+                data_spy_off(seen, kce)
+                amp.disable()
+            data_check_dtypes(torch, seen, use_amp,
+                              f"17(b) AMP {'on' if use_amp else 'off'}")
+            out[f"dtypes_amp_{'on' if use_amp else 'off'}"] = seen["dtypes"]
+            out[f"resident_ms_amp_{'on' if use_amp else 'off'}"] = base_ms
+            print(f"phase 17(b) AMP {'on' if use_amp else 'off'}: dtypes "
+                  f"{seen['dtypes']}; fed from the card, step ms "
+                  f"{[round(v, 2) for v in base_ms]}", flush=True)
+    out["captures"] = net.captures
+    del net, resident
+    torch.cuda.empty_cache()
+    return out
+
+
+def data_amp_cpu(torch, card):
+    """Phase 17(c): the card's AMP step against the port's CPU copy of it
+    (resnet18_v1 at the example's 32x32, 10 classes, B 64; the same
+    weights and batch; eager): the mean loss within DATA_AMP_TOL, beside
+    the control (the card's step without AMP against the CPU's AMP
+    step), and the sequence of (op name, decided dtype, dtypes of the
+    float tensors the op is handed) identical, each op handed its
+    decided dtype only. Then a hybridized
+    net captures a new graph pair after ``amp.init()`` and replays it in
+    bfloat16, and the f32 pair again after ``disable()``; and a float16
+    ``init_trainer`` step with an inf gradient leaves the weights bitwise
+    unchanged and halves the scale."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import dispatch
+
+    dev = mx.context.resolve_device(None)
+    rng = np.random.default_rng(SEED + 18)
+    xh = rng.random((64, 3, 32, 32), dtype=np.float32)
+    yh = rng.integers(0, 10, 64)
+    nets, res = {}, {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        net = vision.resnet18_v1(classes=10)
+        net.initialize(device=where)
+        with autograd.pause():
+            net(torch.from_numpy(xh[:1]).to(where))
+        if label == "card":
+            weights = {n: p.data().detach().cpu()
+                       for n, p in net.collect_params().items()}
+        else:
+            with torch.no_grad():
+                for n, p in net.collect_params().items():
+                    p.data().copy_(weights[n])
+        nets[label] = net
+        if label == "card":
+            # the control: the card's step without AMP, against the
+            # CPU's AMP step below
+            with autograd.record():
+                ctl = SoftmaxCrossEntropyLoss()(
+                    net(torch.from_numpy(xh).to(where)),
+                    torch.from_numpy(yh).to(where)).float().mean().item()
+        amp.init()
+        log = []
+        pol = dispatch.amp_policy
+        orig = pol.cast_inputs
+
+        def cast_inputs(name, vals, pol=pol, orig=orig, log=log):
+            # the decision, and the dtypes of the float tensors the
+            # policy actually hands the op
+            want = pol.decide(name)
+            out = orig(name, vals)
+            if want is not None:
+                log.append((name, str(want)[6:], tuple(sorted(
+                    {str(v.dtype)[6:] for v in out
+                     if isinstance(v, torch.Tensor)
+                     and v.is_floating_point()}))))
+            return out
+
+        pol.cast_inputs = cast_inputs
+        try:
+            with autograd.record():
+                logits = net(torch.from_numpy(xh).to(where))
+                loss = SoftmaxCrossEntropyLoss()(
+                    logits, torch.from_numpy(yh).to(where))
+            autograd.backward(loss)
+        finally:
+            amp.disable()
+        res[label] = (loss.float().mean().item(), log, logits.dtype)
+    (lc, logc, dtc), (lh, logh, dth) = res["card"], res["cpu"]
+    rel = abs(lc - lh) / abs(lh)
+    rel_ctl = abs(ctl - lh) / abs(lh)
+    check(rel <= DATA_AMP_TOL, f"17(c) AMP loss card {lc} against CPU {lh}")
+    check(logc == logh and len(logc) > 0,
+          f"17(c) cast decisions differ: {logc[:6]} against {logh[:6]}")
+    unfaithful = [e for e in logc if e[2] not in ((), (e[1],))]
+    check(not unfaithful, f"17(c) ops handed other dtypes than decided: "
+          f"{unfaithful[:6]}")
+    check(dtc == dth == torch.bfloat16, f"17(c) logits {dtc}, {dth}")
+    kinds = {n: d for n, d, _ in logc}
+    print(f"phase 17(c) AMP step on {card} against the port on the CPU "
+          f"(resnet18_v1 32x32, B 64, same weights and batch): mean loss "
+          f"{lc:.6f} against {lh:.6f}, {rel:.3e} apart (limit "
+          f"{DATA_AMP_TOL:g}); the control, the card's step without AMP, "
+          f"{ctl:.6f}: {rel_ctl:.3e} from the CPU's AMP step; "
+          f"{len(logc)} cast decisions identical in order, each op handed "
+          f"float tensors of its decided dtype only ({kinds}); logits "
+          f"bfloat16", flush=True)
+    out = {"loss_card": lc, "loss_cpu": lh, "rel": rel,
+           "loss_card_amp_off": ctl, "rel_control": rel_ctl,
+           "decisions": len(logc)}
+
+    # graphs: a pair per policy version
+    net = nets["card"]
+    net.hybridize()
+    x, y = torch.from_numpy(xh).to(dev), torch.from_numpy(yh).to(dev)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def step():
+        with autograd.record():
+            lg = net(x)
+            loss = loss_fn(lg, y)
+        autograd.backward(loss)
+        return lg.dtype
+
+    seq = [(step(), net.captures, net.replays)]
+    amp.init()
+    try:
+        seq.append((step(), net.captures, net.replays))
+        seq.append((step(), net.captures, net.replays))
+    finally:
+        amp.disable()
+    seq.append((step(), net.captures, net.replays))
+    (d0, c0, r0), (d1, c1, r1), (d2, c2, r2), (d3, c3, r3) = seq
+    check(d0 == d3 == torch.float32 and d1 == d2 == torch.bfloat16,
+          f"17(c) hybridized dtypes {d0}, {d1}, {d2}, {d3}")
+    check(c1 == c0 + 1 and c2 == c1 and r2 == r1 + 1 and c3 == c2
+          and r3 == r2 + 1,
+          f"17(c) graphs around amp.init(): captures {c0}, {c1}, {c2}, "
+          f"{c3}; replays {r0}, {r1}, {r2}, {r3}")
+    print(f"phase 17(c) hybridized resnet18_v1 on {card}: a recorded step "
+          f"captured {c0} pair(s) in float32; after amp.init() the next "
+          f"captured a new pair ({c1}) with bfloat16 logits and the one "
+          f"after replayed it ({r1} -> {r2} replays, no capture); after "
+          f"disable() the float32 pair replayed ({c3} captures)", flush=True)
+    out["captures"] = [c0, c1, c2, c3]
+
+    # float16 loss scaling: an overflow skips the update
+    amp.init("float16")
+    try:
+        trainer = Trainer(net.collect_params(), "sgd", DATA_SGD)
+        amp.init_trainer(trainer, init_scale=1024.0)
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+            with amp.scale_loss(loss, trainer) as scaled:
+                autograd.backward(scaled)
+        live = [p.data() for p in net.collect_params().values()
+                if p.grad_req != "null"]
+        before = [w.detach().clone() for w in live]
+        live[0].grad.view(-1)[0] = float("inf")
+        trainer.step(64)
+        same = all(torch.equal(w, b) for w, b in zip(live, before))
+        scale = trainer._amp_loss_scaler.loss_scale
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+            with amp.scale_loss(loss, trainer) as scaled:
+                autograd.backward(scaled)
+        trainer.step(64)
+        moved = not all(torch.equal(w, b) for w, b in zip(live, before))
+    finally:
+        amp.disable()
+    check(same and scale == 512.0 and moved,
+          f"17(c) float16 overflow: weights unchanged {same}, scale {scale}, "
+          f"the clean step moved them {moved}")
+    print(f"phase 17(c) float16 init_trainer on {card}: an inf gradient "
+          f"skipped the update (all {len(live)} weights bitwise unchanged), "
+          f"scale 1024 -> {scale:g}; the next clean step updated", flush=True)
+    out["fp16_scale_after_overflow"] = scale
+    return out
+
+
+def data_io(torch, card):
+    """Phase 17(d): ImageRecordIter over a .rec of DATA_REC_N .npy records
+    at 224x224 (B 32) that the phase writes, NDArrayIter over the same
+    images (shuffled under one numpy seed) and PrefetchingIter around it,
+    on the card and on the CPU: every batch bitwise equal, MB/s of
+    float32 data through each on the card."""
+    import shutil
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, recordio
+
+    dev = mx.context.resolve_device(None)
+    rng = np.random.default_rng(SEED + 19)
+    imgs = rng.integers(0, 256, (DATA_REC_N, RN_HW, RN_HW, 3), dtype=np.uint8)
+    labels = rng.integers(0, RN_CLASSES, DATA_REC_N).astype(np.float32)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "mxnet_tpu_torch", "_build", "chip_smoke_io")
+    os.makedirs(root, exist_ok=True)
+    rec = os.path.join(root, "imgs.rec")
+    out = {}
+    try:
+        w = recordio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "w")
+        for i in range(DATA_REC_N):
+            w.write_idx(i, recordio.pack_img(
+                recordio.IRHeader(0, float(labels[i]), i, 0), imgs[i],
+                img_fmt=".npy"))
+        w.close()
+        # an iterator fixes its device, the caller's scope, when made
+        makers = {
+            "ImageRecordIter": lambda: io.ImageRecordIter(
+                rec, RN_B, (3, RN_HW, RN_HW)),
+            "NDArrayIter": lambda: io.NDArrayIter(
+                imgs.transpose(0, 3, 1, 2).astype(np.float32), labels,
+                batch_size=RN_B, shuffle=True),
+            "PrefetchingIter": lambda: io.PrefetchingIter(io.NDArrayIter(
+                imgs.transpose(0, 3, 1, 2).astype(np.float32), labels,
+                batch_size=RN_B, shuffle=True))}
+        for name, make in makers.items():
+            got = {}
+            for label, scope in (("card", mx.gpu(dev.index)),
+                                 ("cpu", mx.cpu())):
+                np.random.seed(SEED)
+                with scope:
+                    it = make()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got[label] = [(b.data[0], b.label[0], b.pad) for b in it]
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                if label == "card":
+                    mb = sum(x.numel() * x.element_size()
+                             for x, _, _ in got[label]) / 1e6
+                    out[name] = {"mb_s": mb / secs,
+                                 "batches": len(got[label])}
+                if hasattr(it, "close"):
+                    it.close()
+            same = len(got["card"]) == len(got["cpu"]) == \
+                DATA_REC_N // RN_B and all(
+                    torch.equal(a.cpu(), c) and torch.equal(la.cpu(), lc)
+                    and pa == pc and a.is_cuda
+                    for (a, la, pa), (c, lc, pc) in zip(got["card"],
+                                                        got["cpu"]))
+            check(same, f"17(d) {name}: the card's batches differ from the "
+                  "CPU's")
+            print(f"phase 17(d) {name} on {card}: {len(got['card'])} "
+                  f"batches of {tuple(got['card'][0][0].shape)} float32 "
+                  f"bitwise equal to "
+                  f"the CPU's, {out[name]['mb_s']:.1f} MB/s to the card",
+                  flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def data_phase(torch, card, wrappers):
+    """Phase 17: the flagship example's data loop on the card
+    (:func:`data_example`, :func:`data_resnet`, :func:`data_amp_cpu`,
+    :func:`data_io`)."""
+    t_phase = time.perf_counter()
+    home = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "mxnet_tpu_torch", "_build", "chip_smoke_home")
+    os.makedirs(home, exist_ok=True)
+    old_home = os.environ.get("MXNET_HOME")
+    os.environ["MXNET_HOME"] = home       # empty: the synthetic datasets
+    try:
+        out = {"example": data_example(torch, card, wrappers)}
+    finally:
+        if old_home is None:
+            del os.environ["MXNET_HOME"]
+        else:
+            os.environ["MXNET_HOME"] = old_home
+        os.rmdir(home)
+    torch.cuda.empty_cache()
+    out["resnet"] = data_resnet(torch, card, wrappers)
+    torch.cuda.empty_cache()
+    out["amp_cpu"] = data_amp_cpu(torch, card)
+    torch.cuda.empty_cache()
+    out["io"] = data_io(torch, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17 took {out['seconds']:.1f} s on {card}", flush=True)
+    return out
+
+
 def main(argv):
     import torch
 
@@ -8390,6 +9234,11 @@ def main(argv):
         results["detect"] = detect_phase(torch, card, kernel_wrappers())
         write_results(results)
         print("chip_smoke --detect: phases 1 and 16 passed")
+        return 0
+    if "--data" in argv:         # phases 1 and 17 only: no result line
+        results["data"] = data_phase(torch, card, kernel_wrappers())
+        write_results(results)
+        print("chip_smoke --data: phases 1 and 17 passed")
         return 0
     if "--array" in argv:        # phases 1 and 15 only: no result line
         results["array"] = array_phase(torch, card, kernel_wrappers())
@@ -8675,6 +9524,10 @@ def main(argv):
     # -- phase 16: SSD300 detection and the contrib ops ---------------------
     torch.cuda.empty_cache()
     results["detect"] = detect_phase(torch, card, wrappers)
+
+    # -- phase 17: the flagship example's data loop -------------------------
+    torch.cuda.empty_cache()
+    results["data"] = data_phase(torch, card, wrappers)
 
     results["kernels"] = rows
     results["seconds"] = time.perf_counter() - t_start

@@ -23,12 +23,14 @@ from . import initializer
 from . import initializer as init
 from . import gluon, serving, convert, rtc
 from . import aot, contrib, io, resilience, telemetry, util
+from . import amp, image, recordio
 from .util import is_np_array, set_np, use_np
 
 __all__ = ["base", "context", "ndarray", "nd", "serialization",
            "autograd", "ops", "optimizer", "lr_scheduler", "np", "npx",
            "initializer", "init", "gluon", "serving", "convert", "rtc",
            "aot", "contrib", "io", "resilience", "telemetry", "util",
+           "amp", "image", "recordio",
            "Context", "Device", "device", "cpu", "cpu_pinned", "gpu",
            "num_gpus", "current_context", "current_device", "is_np_array",
            "set_np", "use_np", "MXNetError", "TransientError", "FatalError"]

@@ -31,7 +31,7 @@ import numpy as onp
 import torch
 
 __all__ = ["MXNetError", "TransientError", "FatalError", "env_str",
-           "env_int", "env_float", "dtype_from_any", "dtype_name",
+           "env_int", "env_float", "env_bool", "dtype_from_any", "dtype_name",
            "matmul_precision", "set_matmul_precision",
            "matmul_precision_scope"]
 
@@ -62,6 +62,15 @@ def env_int(name: str, default: int = 0) -> int:
         return int(os.environ.get(name, default))
     except ValueError:
         return default
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    """Boolean knob: unset gives the default; "0", "false", "off" and ""
+    are false, anything else true (the reference's reader)."""
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return val.strip().lower() not in ("0", "false", "off", "")
 
 
 def env_float(name: str, default: float = 0.0) -> float:

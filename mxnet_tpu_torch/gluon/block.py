@@ -563,9 +563,9 @@ class HybridBlock(Block):
     arguments, on parameters that lie on a CUDA device, replays CUDA
     graphs. Outside ``autograd.record()`` it replays a graph of the
     forward: one graph per key, which is the inputs' shapes and dtypes,
-    the training flag, the matmul precision policy,
-    :class:`~...ops.nn.no_kernels`, and every parameter's address, shape
-    and dtype. While recording, it records one autograd node per call
+    the training flag, the matmul precision policy, the AMP policy's
+    version, :class:`~...ops.nn.no_kernels`, and every parameter's
+    address, shape and dtype. While recording, it records one autograd node per call
     whose forward and backward replay a captured pair of graphs
     (:class:`_CachedGraph`), one pair per key, which adds which inputs
     are differentiated. A pair's memory pool holds the activations,

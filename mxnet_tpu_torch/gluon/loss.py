@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from .. import numpy_extension as npx
 from ..ops import nn as F
 from .block import HybridBlock
 
@@ -173,8 +174,8 @@ class SoftmaxCrossEntropyLoss(Loss):
     averaged over the non-batch axes.
 
     Sparse labels over logits on the last axis take the fused path:
-    :func:`~..ops.nn.softmax_cross_entropy` (the K3 kernel on the card)
-    on the flattened rows, with labels clipped into [0, V) and the NLL
+    ``npx.softmax_cross_entropy`` (the K3 kernel on the card; float32
+    logits under AMP, as the reference's) on the flattened rows, with labels clipped into [0, V) and the NLL
     cast to pred's dtype, as the reference does."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
@@ -189,14 +190,14 @@ class SoftmaxCrossEntropyLoss(Loss):
         if (self._sparse_label and not self._from_logits
                 and axis == pred.dim() - 1):
             n_cls = pred.shape[-1]
-            nll = F.softmax_cross_entropy(
+            nll = npx.softmax_cross_entropy(
                 pred.reshape(-1, n_cls),
                 label.reshape(-1).clamp(0, n_cls - 1), per_example=True)
             loss = nll.reshape(label.shape).to(pred.dtype)
             return _mean_over_non_batch(
                 _apply_weighting(loss, self._weight, sample_weight))
         if not self._from_logits:
-            pred = F.log_softmax(pred, axis=axis)
+            pred = npx.log_softmax(pred, axis=axis)
         if self._sparse_label:
             loss = -F.pick(pred, label, axis=axis)
         else:
@@ -220,7 +221,7 @@ class KLDivLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = F.log_softmax(pred, axis=self._axis)
+            pred = npx.log_softmax(pred, axis=self._axis)
         loss = label * (torch.log(label + 1e-12) - pred)
         return _mean_over_non_batch(
             _apply_weighting(loss, self._weight, sample_weight))
@@ -372,5 +373,5 @@ class SDMLLoss(Loss):
         p = self.smoothing_parameter
         labels = gold * (1 - p) + (1 - gold) * p / (batch_size - 1)
         distances = (x1[:, None] - x2[None]).pow(2).sum(dim=2)
-        log_probabilities = F.log_softmax(-distances, axis=1)
+        log_probabilities = npx.log_softmax(-distances, axis=1)
         return self.kl_loss(log_probabilities, labels) * batch_size

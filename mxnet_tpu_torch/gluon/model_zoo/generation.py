@@ -48,6 +48,7 @@ from ...context import resolve_device
 from ...contrib.quantization import (dequantize_weights_int8,
                                      quantize_weights_int8)
 from ...ops.kernels import _build
+from ...ops.dispatch import amp_version
 from ...ops.kernels.fused_decode import fused_decode_armed
 from ...ops.nn import kernels_enabled
 from ...telemetry import tracing
@@ -300,10 +301,11 @@ def beam_search(model, prompt_ids, max_new_tokens: int, beam_size: int = 4,
 def routing_key(device) -> tuple:
     """The decisions Python takes while a step runs, which a captured
     graph freezes: kernels on or off (:class:`~...ops.nn.no_kernels`),
-    the fused decode kernels armed (``MXNET_TPU_LLM_FUSED_DECODE``), and
-    the matmul precision policy."""
+    the fused decode kernels armed (``MXNET_TPU_LLM_FUSED_DECODE``), the
+    matmul precision policy, and the AMP policy's version (a graph
+    captured before ``amp.init()`` is not replayed after it)."""
     return (kernels_enabled(), fused_decode_armed(torch.device(device)),
-            matmul_precision())
+            matmul_precision(), amp_version())
 
 
 _CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}

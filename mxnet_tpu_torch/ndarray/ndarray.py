@@ -56,6 +56,12 @@ def asnumpy(x: torch.Tensor) -> onp.ndarray:
     return t.cpu().numpy().copy()
 
 
+def to_numpy(x) -> onp.ndarray:
+    """``x`` as host numpy: a tensor's :func:`asnumpy` copy, anything
+    else through ``numpy.asarray``."""
+    return asnumpy(x) if isinstance(x, torch.Tensor) else onp.asarray(x)
+
+
 def attach_grad(x: torch.Tensor, grad_req: str = "write") -> torch.Tensor:
     """``x.attach_grad(grad_req)`` of the reference: ``x`` (a leaf)
     records gradients into ``x.grad``, which starts at zeros. "write"

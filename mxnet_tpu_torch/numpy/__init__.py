@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from ..base import MXNetError, dtype_from_any
 from ..context import current_context, resolve_device  # noqa: F401
 from ..ndarray.ndarray import asnumpy, from_numpy
+from ..ops import dispatch as _dispatch
 from ..ops.nn import drop_index
 from . import random  # noqa: F401  (submodule)
 
@@ -472,6 +473,8 @@ def _binary(fn, name, to_float=False):
         if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
             a = array(a)
         a, b = _t(a, b), _t(b, a)
+        if _dispatch.amp_policy is not None:
+            a, b = _dispatch.amp_cast(name, a, b)
         dt = torch.result_type(a, b)
         if to_float and (_is_int(dt) or dt == torch.bool):
             dt = _float_of(dt)
@@ -641,8 +644,12 @@ def _nan_to_num_default(x):
 
 
 def _unary(fn, name, to_float=False):
+    amp_name = "gamma" if name == "gamma_fn" else name
+
     def op(x, out=None):
         x = _tt(x)
+        if _dispatch.amp_policy is not None:
+            x, = _dispatch.amp_cast(amp_name, x)
         if to_float and (_is_int(x.dtype) or x.dtype == torch.bool):
             x = x.to(_float_of(x.dtype))
         return _out(fn(x), out)
@@ -791,8 +798,15 @@ def _accumulate(a, dtype, fn):
     return fn(a if dtype is None else a.to(dtype))
 
 
+def _amp1(name, a):
+    """``a`` as the AMP policy casts it for ``name`` (AMP is on)."""
+    return _dispatch.amp_cast(name, a)[0]
+
+
 def sum(a, axis=None, dtype=None, keepdims=False, out=None):
     a = _tt(a)
+    if _dispatch.amp_policy is not None:
+        a = _amp1("sum", a)
     dt = _int_sum_dtype(a) if dtype is None else dtype_from_any(dtype)
     return _out(_accumulate(a, dt, lambda x: torch.sum(
         x, dim=_dims(axis), keepdim=keepdims)), out)
@@ -800,6 +814,8 @@ def sum(a, axis=None, dtype=None, keepdims=False, out=None):
 
 def prod(a, axis=None, dtype=None, keepdims=False, out=None):
     a = _tt(a)
+    if _dispatch.amp_policy is not None:
+        a = _amp1("prod", a)
     dt = _int_sum_dtype(a) if dtype is None else dtype_from_any(dtype)
     return _out(_accumulate(a, dt, lambda x: _over_last(
         x, axis, keepdims, lambda v: torch.prod(v, -1))), out)
@@ -821,6 +837,8 @@ def nanprod(a, axis=None, dtype=None, keepdims=False, out=None):
 
 def mean(a, axis=None, dtype=None, keepdims=False, out=None):
     a = _tt(a)
+    if _dispatch.amp_policy is not None:
+        a = _amp1("mean", a)
     if dtype is not None:
         a = a.to(dtype_from_any(dtype))
     return _out(torch.mean(_inexact(a), dim=_dims(axis), keepdim=keepdims),
@@ -918,10 +936,14 @@ def _var(a, axis, ddof, keepdims, skipnan):
 
 
 def var(a, axis=None, dtype=None, ddof=0, keepdims=False, out=None):
+    if _dispatch.amp_policy is not None:
+        a = _amp1("var", _tt(a))
     return _out(_var(a, axis, ddof, keepdims, False), out)
 
 
 def std(a, axis=None, dtype=None, ddof=0, keepdims=False, out=None):
+    if _dispatch.amp_policy is not None:
+        a = _amp1("std", _tt(a))
     return _out(torch.sqrt(_var(a, axis, ddof, keepdims, False)), out)
 
 
@@ -968,10 +990,14 @@ def _cum(a, axis, dtype, fn, nan_fill=None):
 
 
 def cumsum(a, axis=None, dtype=None, out=None):
+    if _dispatch.amp_policy is not None:
+        a = _amp1("cumsum", _tt(a))
     return _out(_cum(a, axis, dtype, torch.cumsum), out)
 
 
 def cumprod(a, axis=None, dtype=None, out=None):
+    if _dispatch.amp_policy is not None:
+        a = _amp1("cumprod", _tt(a))
     return _out(_cum(a, axis, dtype, torch.cumprod), out)
 
 
@@ -1314,6 +1340,8 @@ def dot(a, b, out=None):
     N-D . 1-D sums over the last axis of ``a``, and N-D . M-D over the
     last axis of ``a`` and the second-to-last of ``b``."""
     a, b = _tt(a), _tt(b, a)
+    if _dispatch.amp_policy is not None:
+        a, b = _dispatch.amp_cast("dot", a, b)
     if a.dim() == 0 or b.dim() == 0:
         res = a * b
     elif b.dim() == 1:
@@ -1326,7 +1354,10 @@ def dot(a, b, out=None):
 
 
 def matmul(a, b):
-    return torch.matmul(_tt(a), _tt(b, a))
+    a, b = _tt(a), _tt(b, a)
+    if _dispatch.amp_policy is not None:
+        a, b = _dispatch.amp_cast("matmul", a, b)
+    return torch.matmul(a, b)
 
 
 def _promoted(a, b):
@@ -1371,6 +1402,8 @@ def einsum(subscripts, *operands, **kwargs):
     """torch.einsum of the operands promoted to one dtype (torch takes
     one)."""
     ops = _seq(operands)
+    if _dispatch.amp_policy is not None:
+        ops = _dispatch.amp_cast("einsum", *ops)
     dt = functools.reduce(torch.promote_types, [o.dtype for o in ops])
     return torch.einsum(subscripts, *[o.to(dt) for o in ops])
 

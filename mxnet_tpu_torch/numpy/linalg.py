@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import dispatch as _dispatch
 from . import _inexact, _tt
 
 __all__ = ["norm", "inv", "pinv", "det", "slogdet", "matrix_rank",
@@ -30,6 +31,8 @@ def norm(x, ord=None, axis=None, keepdims=False):
     and no ``axis``, a vector norm over one axis, a matrix norm over
     two."""
     x = _f(x)
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("norm", x)
     if axis is None and ord is None:
         out = torch.linalg.vector_norm(x)
         return out.reshape((1,) * x.dim()) if keepdims else out

@@ -2,8 +2,14 @@
 ``mxnet_tpu/numpy_extension/__init__.py``): the operators beyond numpy,
 each forwarding to :mod:`~mxnet_tpu_torch.ops.nn` as the reference's
 ``_call`` forwards to its ``ops/nn.py``. Autograd is torch's own, so
-there is no dispatch layer between. ``dropout`` reads the training flag
-of :mod:`~mxnet_tpu_torch.autograd`, as the reference's does.
+there is no dispatch layer between, but for mixed precision: each op
+that the AMP lists name (``amp/lists.py``, under the reference's
+dispatch names: ``Convolution``, ``FullyConnected``, ``BatchNorm``,
+``softmax_cross_entropy``, ...) hands its tensor inputs to
+``ops.dispatch.amp_policy`` when one is set (``dispatch.amp_cast``),
+where the reference's ``apply_op`` casts them; with AMP off that is one test of a
+module global. ``dropout`` reads the training flag of
+:mod:`~mxnet_tpu_torch.autograd`, as the reference's does.
 
 The contrib family (ROI, box, SSD, deformable and the small probes) is
 :mod:`~mxnet_tpu_torch.ops.contrib`'s functions themselves, and
@@ -34,6 +40,7 @@ from ..base import MXNetError
 from ..context import cpu, current_context, gpu, num_gpus  # noqa: F401
 from ..ndarray.ndarray import waitall  # noqa: F401
 from ..ops import contrib as _contrib
+from ..ops import dispatch as _dispatch
 from ..ops import nn as _nn
 from ..ops.contrib import (  # noqa: F401
     all_finite, allclose, bilinear_resize_2d, bipartite_matching, box_iou,
@@ -78,6 +85,8 @@ __all__ = ["fully_connected", "activation", "convolution", "deconvolution",
 
 def fully_connected(x, weight, bias=None, num_hidden=None, no_bias=False,
                     flatten=True):
+    if _dispatch.amp_policy is not None:
+        x, weight, bias = _dispatch.amp_cast("FullyConnected", x, weight, bias)
     return _nn.fully_connected(x, weight, None if no_bias else bias,
                                num_hidden=num_hidden, flatten=flatten,
                                no_bias=no_bias)
@@ -89,6 +98,8 @@ def activation(x, act_type="relu"):
 
 def convolution(x, weight, bias=None, kernel=None, stride=1, dilate=1, pad=0,
                 num_filter=0, num_group=1, no_bias=False, layout="NCHW"):
+    if _dispatch.amp_policy is not None:
+        x, weight, bias = _dispatch.amp_cast("Convolution", x, weight, bias)
     return _nn.convolution(x, weight, None if no_bias else bias,
                            stride=stride, dilate=dilate, pad=pad,
                            num_group=num_group, layout=layout)
@@ -96,6 +107,8 @@ def convolution(x, weight, bias=None, kernel=None, stride=1, dilate=1, pad=0,
 
 def deconvolution(x, weight, bias=None, stride=1, dilate=1, pad=0, adj=0,
                   num_filter=0, num_group=1, no_bias=False, layout="NCHW"):
+    if _dispatch.amp_policy is not None:
+        x, weight, bias = _dispatch.amp_cast("Deconvolution", x, weight, bias)
     return _nn.deconvolution(x, weight, None if no_bias else bias,
                              stride=stride, dilate=dilate, pad=pad, adj=adj,
                              num_group=num_group, layout=layout)
@@ -121,8 +134,11 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
     reference's aux states. ``output_mean_var=True`` returns ``(out,
     new_mean, new_var)``."""
     training = is_training()
+    rm, rv = running_mean, running_var
+    if _dispatch.amp_policy is not None:
+        x, gamma, beta, rm, rv = _dispatch.amp_cast("BatchNorm", x, gamma, beta, rm, rv)
     out, new_mean, new_var = _nn.batch_norm(
-        x, gamma, beta, running_mean, running_var, eps=eps,
+        x, gamma, beta, rm, rv, eps=eps,
         momentum=momentum, fix_gamma=fix_gamma,
         use_global_stats=use_global_stats, training=training, axis=axis)
     if training and not use_global_stats:
@@ -135,22 +151,32 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    if _dispatch.amp_policy is not None:
+        x, gamma, beta = _dispatch.amp_cast("LayerNorm", x, gamma, beta)
     return _nn.layer_norm(x, gamma, beta, axis=axis, eps=eps)
 
 
 def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    if _dispatch.amp_policy is not None:
+        x, gamma = _dispatch.amp_cast("RMSNorm", x, gamma)
     return _nn.rms_norm(x, gamma, axis=axis, eps=eps)
 
 
 def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    if _dispatch.amp_policy is not None:
+        x, gamma, beta = _dispatch.amp_cast("GroupNorm", x, gamma, beta)
     return _nn.group_norm(x, gamma, beta, num_groups=num_groups, eps=eps)
 
 
 def instance_norm(x, gamma, beta, eps=1e-5):
+    if _dispatch.amp_policy is not None:
+        x, gamma, beta = _dispatch.amp_cast("InstanceNorm", x, gamma, beta)
     return _nn.instance_norm(x, gamma, beta, eps=eps)
 
 
 def l2_normalization(x, eps=1e-10, mode="instance"):
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("L2Normalization", x)
     return _nn.l2_normalization(x, eps=eps, mode=mode)
 
 
@@ -172,25 +198,35 @@ def gelu(x, approximate=True):
 def softmax(x, axis=-1, temperature=None, length=None):
     """Softmax of ``x / temperature``; with ``length`` (one per row of
     axis 0) the positions past a row's length get 0."""
+    if _dispatch.amp_policy is not None:
+        x, length = _dispatch.amp_cast("softmax", x, length)
     return _nn.softmax(x, axis=axis, temperature=temperature, length=length)
 
 
 def log_softmax(x, axis=-1, temperature=None):
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("log_softmax", x)
     return _nn.log_softmax(x, axis=axis, temperature=temperature)
 
 
 def masked_softmax(x, mask, axis=-1, temperature=1.0):
+    if _dispatch.amp_policy is not None:
+        x, mask = _dispatch.amp_cast("masked_softmax", x, mask)
     return _nn.masked_softmax(x, mask, axis=axis, temperature=temperature)
 
 
 def masked_log_softmax(x, mask, axis=-1, temperature=1.0):
+    if _dispatch.amp_policy is not None:
+        x, mask = _dispatch.amp_cast("masked_log_softmax", x, mask)
     return _nn.masked_log_softmax(x, mask, axis=axis,
                                   temperature=temperature)
 
 
 def softmax_cross_entropy(data, label, per_example=False):
     """Sparse-label CE over (N, V) logits through the K3 kernel's wrapper
-    (reference ``loss_binary_op.cc``)."""
+    (reference ``loss_binary_op.cc``); float32 logits under AMP."""
+    if _dispatch.amp_policy is not None:
+        data, label = _dispatch.amp_cast("softmax_cross_entropy", data, label)
     return _nn.softmax_cross_entropy(data, label, per_example=per_example)
 
 
@@ -323,18 +359,26 @@ def relu(x):
 
 
 def erf(x):
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("erf", x)
     return torch.erf(x)
 
 
 def erfinv(x):
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("erfinv", x)
     return torch.erfinv(x)
 
 
 def gamma(x):
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("gamma", x)
     return _np.gamma_fn(x)
 
 
 def gammaln(x):
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("gammaln", x)
     return torch.lgamma(x)
 
 
@@ -343,6 +387,8 @@ def digamma(x):
 
 
 def rsqrt(x):
+    if _dispatch.amp_policy is not None:
+        x, = _dispatch.amp_cast("rsqrt", x)
     return torch.rsqrt(x)
 
 
@@ -378,6 +424,8 @@ def mish(x):
 def smooth_l1(data, scalar=1.0):
     """0.5 (s x)² where |x| < 1/s², else |x| - 0.5/s² (reference
     ``elemwise_binary_scalar_op_extended.cc``)."""
+    if _dispatch.amp_policy is not None:
+        data, = _dispatch.amp_cast("smooth_l1", data)
     s2 = scalar * scalar
     ax = data.abs()
     return torch.where(ax < 1.0 / s2, 0.5 * s2 * data * data, ax - 0.5 / s2)
@@ -507,20 +555,33 @@ def from_dlpack(dlpack):
 # attention, losses, pooling
 # ---------------------------------------------------------------------------
 def interleaved_matmul_selfatt_qk(queries_keys_values, heads):
+    if _dispatch.amp_policy is not None:
+        queries_keys_values, = _dispatch.amp_cast("interleaved_matmul_selfatt_qk",
+                                    queries_keys_values)
     return _nn.interleaved_matmul_selfatt_qk(queries_keys_values, heads)
 
 
 def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
                                       heads):
+    if _dispatch.amp_policy is not None:
+        queries_keys_values, attention = _dispatch.amp_cast(
+            "interleaved_matmul_selfatt_valatt", queries_keys_values,
+            attention)
     return _nn.interleaved_matmul_selfatt_valatt(queries_keys_values,
                                                  attention, heads)
 
 
 def interleaved_matmul_encdec_qk(queries, keys_values, heads):
+    if _dispatch.amp_policy is not None:
+        queries, keys_values = _dispatch.amp_cast("interleaved_matmul_encdec_qk", queries,
+                                    keys_values)
     return _nn.interleaved_matmul_encdec_qk(queries, keys_values, heads)
 
 
 def interleaved_matmul_encdec_valatt(keys_values, attention, heads):
+    if _dispatch.amp_policy is not None:
+        keys_values, attention = _dispatch.amp_cast("interleaved_matmul_encdec_valatt",
+                                      keys_values, attention)
     return _nn.interleaved_matmul_encdec_valatt(keys_values, attention,
                                                 heads)
 
@@ -529,6 +590,8 @@ def multi_head_attention(query, key, value, heads, causal=False):
     """Multi-head attention over (B, L, H * D) projections through
     :func:`~mxnet_tpu_torch.ops.nn.attend` (the K1 kernels on the
     card)."""
+    if _dispatch.amp_policy is not None:
+        query, key, value = _dispatch.amp_cast("multi_head_attention", query, key, value)
     return _nn.attend(query, key, value, heads, causal=causal)
 
 
@@ -564,8 +627,12 @@ def sync_batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
     otherwise. Returns (out, mean_used, var_used). An ``axis_name``
     raises: the port has no device mesh yet."""
     training = is_training()
+    mm, mv = moving_mean, moving_var
+    if _dispatch.amp_policy is not None:
+        x, gamma, beta, mm, mv = _dispatch.amp_cast("sync_batch_norm", x, gamma, beta, mm,
+                                      mv)
     out, mean, var, new_mm, new_mv = _contrib.sync_batch_norm(
-        x, gamma, beta, moving_mean, moving_var, eps=eps, momentum=momentum,
+        x, gamma, beta, mm, mv, eps=eps, momentum=momentum,
         axis_name=axis_name, training=training)
     if training:
         with torch.no_grad():

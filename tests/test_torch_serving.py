@@ -283,7 +283,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     control_flow, dispatch, contrib.nd, gluon.contrib.cnn) run an SSD
     target, decode and NMS, a deformable block and the control flow,
     under a CPU device scope, with nd's fallback to np and
-    model_zoo.get_model."""
+    model_zoo.get_model; the data front door's modules (gluon.data with
+    vision, recordio, io, image, gluon.utils, amp) run a synthetic
+    CIFAR-10 DataLoader with 0 workers, 2 forked workers and 2 threads,
+    a .npy record file through ImageRecordIter, NDArrayIter under
+    PrefetchingIter, mx.image's augmenters, split_and_load, and an AMP
+    train step through init_trainer and scale_loss."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, names in os.walk(os.path.join(ROOT, "mxnet_tpu_torch")):
@@ -493,6 +498,54 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert mxnet_tpu_torch.nd.dot is mnp.dot and"
         " dispatch.apply_op(torch.neg, [f]).shape == (3, 2)\n"
         "assert mxnet_tpu_torch.gluon.model_zoo.get_model('resnet18_v1')\n"
+        "from mxnet_tpu_torch import amp, image, recordio\n"
+        "from mxnet_tpu_torch.gluon.data import vision\n"
+        "from mxnet_tpu_torch.gluon import data as gdata, utils as gutils\n"
+        "tf = vision.transforms\n"
+        "ds = vision.CIFAR10(train=False).transform_first(tf.Compose("
+        "[tf.RandomFlipLeftRight(), tf.ToTensor(), tf.Normalize(0.5, 0.2)]))\n"
+        "for kw in ({}, {'num_workers': 2}, {'num_workers': 2,"
+        " 'thread_pool': True}):\n"
+        "    with mxnet_tpu_torch.cpu(), gdata.DataLoader(ds.take(12),"
+        " batch_size=4, shuffle=True, **kw) as dl:\n"
+        "        bx, by = next(iter(dl))\n"
+        "    assert bx.shape == (4, 3, 32, 32) and by.shape == (4,)\n"
+        "with tempfile.TemporaryDirectory() as rd:\n"
+        "    w = recordio.MXIndexedRecordIO(rd + '/a.idx', rd + '/a.rec', 'w')\n"
+        "    for i in range(3):\n"
+        "        w.write_idx(i, recordio.pack_img(recordio.IRHeader(0, i, i,"
+        " 0), np.zeros((4, 4, 3), np.uint8), img_fmt='.npy'))\n"
+        "    w.close()\n"
+        "    with mxnet_tpu_torch.cpu():\n"
+        "        it = io.ImageRecordIter(rd + '/a.rec', 2, (3, 4, 4))\n"
+        "    assert [b.pad for b in it] == [0, 1]\n"
+        "    it.close()\n"
+        "with mxnet_tpu_torch.cpu():\n"
+        "    ni = io.PrefetchingIter(io.NDArrayIter(np.ones((5, 2)),"
+        " batch_size=2))\n"
+        "assert len(list(ni)) == 3\n"
+        "with mxnet_tpu_torch.cpu():\n"
+        "    im = image.imdecode(recordio.unpack(recordio.pack_img("
+        "recordio.IRHeader(0, 0, 0, 0), np.ones((5, 6, 3), np.uint8),"
+        " img_fmt='.npy'))[1])\n"
+        "    for a in image.CreateAugmenter((3, 4, 4), rand_crop=True):\n"
+        "        im = a(im)\n"
+        "assert im.shape == (4, 4, 3)\n"
+        "assert len(gutils.split_and_load(np.ones((4, 2)), ['cpu', 'cpu'])) == 2\n"
+        "amp.init()\n"
+        "an = nn.HybridSequential()\n"
+        "an.add(nn.Conv2D(2, 3), nn.BatchNorm(), nn.Dense(3))\n"
+        "an.initialize(device='cpu')\n"
+        "atr = amp.init_trainer(Trainer(an.collect_params(), 'sgd'))\n"
+        "with autograd.record():\n"
+        "    al = SoftmaxCrossEntropyLoss()(an(torch.rand(2, 3, 5, 5)),"
+        " torch.tensor([0, 2]))\n"
+        "    with amp.scale_loss(al, atr) as sl:\n"
+        "        autograd.backward(sl)\n"
+        "atr.step(2)\n"
+        "assert al.dtype == torch.bfloat16 and an[2].weight.data().dtype =="
+        " torch.float32\n"
+        "amp.disable()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
